@@ -1,0 +1,47 @@
+"""debwt_tpu_torch — the PyTorch/CUDA port of debwt_tpu for one NVIDIA
+H100.
+
+It builds the same BWT, byte for byte, as the JAX package (the
+reference, which stays unchanged beside it): the BWT of the text
+r_0 # r_1 # ... # r_{n-1} $ under lexicographic suffix order over
+A < C < G < T < # < $, written in the reference deBWT's on-disk layout.
+
+Layers so far (the single-device tier):
+
+  io.fasta / io.writer   ingest with N-policy, reference-format output
+  special                separator-window module (host, NumPy)
+  ops                    window keys, lexicographic msort, 2-bit packing
+  kernels                hand-written CUDA kernels (csrc/*.cu) with their
+                         plain PyTorch versions: window_keys, seg_or
+  engine                 fused one-sort classification + SP + blue
+  pipeline / api / cli   build_bwt, tier routing, command line
+
+The package imports torch, numpy and the standard library only.
+Entry points run on the CUDA card unless the caller passes
+device="cpu".
+"""
+
+from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "PipelineConfig",
+    "SequenceCollection",
+    "build",
+    "build_bwt",
+    "BwtResult",
+    "__version__",
+]
+
+
+def __getattr__(name):
+    if name in ("build_bwt", "BwtResult"):
+        from debwt_tpu_torch import pipeline
+
+        return getattr(pipeline, name)
+    if name == "build":
+        from debwt_tpu_torch import api
+
+        return api.build
+    raise AttributeError(name)

@@ -1,0 +1,90 @@
+"""Command-line interface.
+
+Mirrors the reference CLI (src/main.c:175-186):
+
+  python -m debwt_tpu_torch.cli -o out.bwt [-k 32] [--n-policy reject|random|to-g]
+                                [--seed S] [--check] [--timings]
+                                [--device cuda|cpu] input.fa[.gz]
+
+`-t`/`-j` are accepted for drop-in compatibility and ignored (no
+Jellyfish is needed — counting is on the device). Runs on the CUDA card
+unless --device cpu is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="debwt-torch",
+        description="GPU BWT construction (deBWT-compatible output)",
+    )
+    p.add_argument("source", help="sequence collection (fasta/fastq, .gz ok)")
+    p.add_argument("-o", dest="obj", required=True, help="output bwt file")
+    p.add_argument("-k", dest="m", type=int, default=32,
+                   help="k-mer length (12..32, default 32)")
+    p.add_argument("-t", dest="threads", type=int, default=None,
+                   help="(compat, ignored)")
+    p.add_argument("-j", dest="jroot", default=None,
+                   help="(compat, ignored — no Jellyfish needed)")
+    p.add_argument("--n-policy", default="reject",
+                   choices=["reject", "random", "to-g"],
+                   help="handling of N/IUPAC characters")
+    p.add_argument("--seed", type=int, default=11,
+                   help="seed for --n-policy random")
+    p.add_argument("--check", action="store_true",
+                   help="enable internal invariant checks")
+    p.add_argument("--timings", action="store_true",
+                   help="print per-stage wall time + Mbp/s (the "
+                        "reference prints these on every run, "
+                        "src/main.c:86-170)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="device to build on (default: the CUDA card)")
+    args = p.parse_args(argv)
+
+    def say(msg):
+        print(msg, file=sys.stderr)
+
+    from debwt_tpu_torch.api import build
+    from debwt_tpu_torch.io import read_collection, write_bwt
+    from debwt_tpu_torch.types import PipelineConfig
+
+    # pre-flight: output writability (src/main.c:55-58)
+    try:
+        with open(args.obj, "wb"):
+            pass
+        os.remove(args.obj)
+    except OSError as e:
+        say(f"cannot create {args.obj}: {e}")
+        return 1
+
+    t0 = time.time()
+    coll = read_collection(args.source, args.n_policy, args.seed)
+    say(f"[debwt-torch] {coll.n_reads} reads, "
+        f"{(coll.bwt_len - coll.n_reads)/1e6:.2f} Mbp "
+        f"({time.time()-t0:.2f}s ingest)")
+    config = PipelineConfig(m=args.m, check=args.check)
+
+    t1 = time.time()
+    result = build(coll, config, device=args.device, verbose=True)
+    dt = time.time() - t1
+    say(f"[debwt-torch] BWT of {coll.bwt_len} chars in {dt:.2f}s "
+        f"({coll.bwt_len/1e6/dt:.2f} Mbp/s)")
+    if args.timings and result.timings:
+        mbp = coll.bwt_len / 1e6
+        for label, secs in result.timings.items():
+            say(f"[debwt-torch]   {label:28s} {secs:8.3f}s"
+                f"  ({mbp / max(secs, 1e-9):8.2f} Mbp/s)")
+
+    write_bwt(result, args.obj)
+    say(f"[debwt-torch] wrote {args.obj} (+ .#, .$)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,228 @@
+"""Single-device end-to-end pipeline orchestration.
+
+Two device stages (engine.stage_graph / engine.stage_finish) with one
+host sync in between for the dynamic SP/blue counts — the analogue of
+the reference's cross-stage globals (case3num, blueCapacity, ...,
+src/main.c:83-160). Sidecars, packing and conservation counts are
+computed on the device; only the packed words and tiny metadata cross
+back to the host (the full 6-letter BWT is fetched lazily on first
+access).
+
+Runs on the CUDA card unless the caller passes device="cpu"; with no
+card and no explicit CPU request it raises rather than carry on on the
+CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from debwt_tpu_torch import constants as K
+from debwt_tpu_torch import engine, ops
+from debwt_tpu_torch.special import SpecialData, _cached_buf, build_special
+from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
+
+# fused-engine row bound (engine.stage_graph packs class and position
+# into int32 sort operands and fact broadcasts below 2^29)
+MAX_ROWS = 1 << 29
+
+
+def resolve_device(device=None) -> torch.device:
+    """torch.device("cuda") unless the caller names another; raises if
+    the chosen device is CUDA and no card is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port on the CPU"
+        )
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class BwtResult:
+    sharp_pos: np.ndarray
+    dollar_pos: int
+    packed_words: torch.Tensor | None = None  # int32 words (uint32 bits)
+    _bwt6: Any = None                         # np.ndarray or tensor
+    _n: int = 0
+    # per-stage wall seconds (the reference prints these on every run,
+    # src/main.c:86-170; the CLI --timings flag surfaces them)
+    timings: Any = None
+
+    @property
+    def bwt6(self) -> np.ndarray:
+        b = self._bwt6
+        if not isinstance(b, np.ndarray):
+            b = b[: self._n].cpu().numpy()
+            object.__setattr__(self, "_bwt6", b)
+        return b
+
+    @property
+    def bwt2(self) -> np.ndarray:
+        out = self.bwt6.copy()
+        out[out >= 4] = K.T
+        return out
+
+    def packed(self) -> bytes:
+        """The reference's on-disk layout: little-endian u64 words, 32
+        bases/word, first base in bits 63:62."""
+        if self.packed_words is not None:
+            w = self.packed_words.cpu().numpy().view(np.uint32)
+            n_words = (self._n + 31) // 32
+            if w.shape[0] % 2:
+                w = np.concatenate([w, np.zeros(1, np.uint32)])
+            u64 = (w[0::2].astype(np.uint64) << np.uint64(32)) | w[
+                1::2
+            ].astype(np.uint64)
+            return u64[:n_words].astype("<u8").tobytes()
+        from debwt_tpu_torch.golden import pack_2bit_u64
+
+        return pack_2bit_u64(self.bwt2)
+
+
+def _pow2(x: int) -> int:
+    return max(16, 1 << (int(x) - 1).bit_length())
+
+
+def _bucket(x: int) -> int:
+    """Next eighth-power-of-two >= x (< 25% padding worst case, e.g.
+    65 -> 80) — shape bucketing, kept from the JAX package so that both
+    engines see the same padded inputs."""
+    x = max(64, int(x))
+    b = (x - 1).bit_length()
+    step = 1 << max(0, b - 3)
+    return -(-x // step) * step
+
+
+def rows_needed(coll: SequenceCollection, m: int) -> int:
+    """Sorted rows of the fused engine: bucketed text plus specials."""
+    return _bucket(coll.bwt_len) + _pow2(coll.n_reads * (m - 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class StageInputs:
+    """The padded host inputs of engine.stage_graph (numpy)."""
+
+    x2w: np.ndarray          # uint32 packed text words, T-padded
+    sep_pos: np.ndarray      # int32[_pow2(n)], pad N_cap
+    spec_key: np.ndarray     # int64[ns_cap] T-filled keys, pad -1
+    spec_char6: np.ndarray   # uint8[ns_cap], pad 0
+    spec_branch: np.ndarray  # int32[_pow2(#branches)], pad N_cap
+    n_real: int
+    N_cap: int
+
+
+def _padded(a: np.ndarray, cap: int, fill) -> np.ndarray:
+    out = np.full(cap, fill, dtype=a.dtype)
+    out[: a.shape[0]] = a
+    return out
+
+
+def stage_inputs(
+    coll: SequenceCollection, m: int, sp: SpecialData | None = None
+) -> StageInputs:
+    sp = sp if sp is not None else build_special(coll, m)
+    N = coll.bwt_len
+    N_cap = _bucket(N)
+    x2p = _cached_buf("pipe_x2p", N_cap + K.TAIL_PAD)
+    x2p[:N] = coll.x2
+    x2p[N:] = K.T
+    spec_key = sp.spec_tfill.view(np.int64)
+    return StageInputs(
+        # 2-bit packed text: 4x less host->device traffic
+        x2w=ops.pack_2bit_words_host(x2p),
+        sep_pos=_padded(coll.sep.astype(np.int32), _pow2(coll.n_reads), N_cap),
+        spec_key=_padded(spec_key, _pow2(spec_key.shape[0]), -1),
+        spec_char6=_padded(sp.spec_bwt6, _pow2(spec_key.shape[0]), 0),
+        spec_branch=_padded(
+            sp.spec_branch_pos.astype(np.int32),
+            _pow2(max(1, sp.spec_branch_pos.shape[0])), N_cap,
+        ),
+        n_real=N,
+        N_cap=N_cap,
+    )
+
+
+def build_bwt(
+    coll: SequenceCollection,
+    config: PipelineConfig | None = None,
+    device=None,
+) -> BwtResult:
+    config = config or PipelineConfig()
+    dev = resolve_device(device)
+    trace = os.environ.get("DEBWT_TRACE") == "1"
+    timings: dict[str, float] = {}
+
+    def _t(label, t0):
+        dt = time.perf_counter() - t0
+        timings[label] = timings.get(label, 0.0) + dt
+        if trace:
+            print(f"[debwt-torch trace] {label:24s} {dt:8.3f}s",
+                  file=sys.stderr)
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    m = config.m
+    N = coll.bwt_len
+    n = coll.n_reads
+    if rows_needed(coll, m) >= MAX_ROWS:
+        raise NotImplementedError(
+            "single-device engine: text must be < ~512 Mbp (R < 2^29 "
+            "rows); the grouped, out-of-core and multi-device tiers are "
+            "not ported yet"
+        )
+
+    # ---- host: special module (tiny, irregular) ----
+    sp = build_special(coll, m)
+    t0 = _t("special module (host)", t0)
+    inp = stage_inputs(coll, m, sp)
+
+    def d(a):
+        return torch.from_numpy(a).to(dev)
+
+    spec_branch_d = d(inp.spec_branch)
+    out = engine.stage_graph(
+        d(inp.x2w.view(np.int32)), d(inp.sep_pos), d(inp.spec_key),
+        d(inp.spec_char6), spec_branch_d, N, m, inp.N_cap,
+    )
+    (bwt6_partial, ev_key, mi_row, seg_start, r_pos,
+     bwt_char, L, B, x2p_d) = out
+    L, B = torch.stack([L, B]).tolist()       # the one mid-build sync
+    t0 = _t("stage_graph (+h2d, sync)", t0)
+    # eighth-power buckets (like N_cap), not powers of two, to keep the
+    # L-sized rank-loop sorts from padding by up to 2x
+    L_cap, B_cap = _bucket(L), _bucket(B)
+
+    bwt6_d, packed_d, sharp_d, dollar_d, n_sharp_d, counts_d = (
+        engine.stage_finish(
+            x2p_d, ev_key, mi_row, seg_start, r_pos, bwt_char,
+            bwt6_partial, spec_branch_d, N,
+            m, inp.N_cap, L_cap, B_cap, _pow2(n),
+        )
+    )
+    sharp = sharp_d.cpu().numpy().astype(np.int64)
+    dollar, n_sharp = torch.stack([dollar_d, n_sharp_d]).tolist()
+    t0 = _t("stage_finish (+sync)", t0)
+    assert n_sharp == n - 1, (n_sharp, n)
+    assert (sharp[: n - 1] < N).all()
+    assert dollar < N
+    if config.check:
+        counts = counts_d.cpu().numpy()
+        want = np.bincount(coll.x6, minlength=6)
+        assert (counts == want).all(), (counts, want)
+    return BwtResult(
+        sharp_pos=sharp[: n - 1],
+        dollar_pos=dollar,
+        packed_words=packed_d,
+        _bwt6=bwt6_d,
+        _n=N,
+        timings=timings,
+    )

@@ -1,0 +1,131 @@
+"""The port's ingest, writer and command line against the JAX package's,
+on the CPU, and the port's import isolation from JAX."""
+
+import gzip
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from debwt_tpu.cli import main as jax_main
+from debwt_tpu.io import read_collection as jax_read_collection
+from debwt_tpu_torch.cli import main as torch_main
+from debwt_tpu_torch.golden import golden_bwt
+from debwt_tpu_torch.io import read_bwt, read_collection, write_bwt
+from debwt_tpu_torch.types import SequenceCollection
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+def _write_fasta(path, reads, width=70):
+    with open(path, "w") as f:
+        for i, r in enumerate(reads):
+            f.write(f">read{i} description\n")
+            for j in range(0, len(r), width):
+                f.write(r[j : j + width] + "\n")
+
+
+def _reads(rng, n, alphabet="ACGT"):
+    return ["".join(rng.choice(list(alphabet), size=int(rng.integers(40, 200))))
+            for _ in range(n)]
+
+
+def _outputs(obj):
+    return [open(str(obj) + ext, "rb").read() for ext in ("", ".#", ".$")]
+
+
+@pytest.mark.parametrize(
+    "m,policy,alphabet",
+    [(32, "reject", "ACGT"), (12, "reject", "ACGT"),
+     (24, "random", "ACGTN"), (31, "to-g", "ACGTN")],
+)
+def test_cli_matches_jax_cli(tmp_path, rng, m, policy, alphabet):
+    """Same FASTA, same flags: the three output files are byte-identical."""
+    path = tmp_path / "in.fa"
+    _write_fasta(path, _reads(rng, 7, alphabet))
+    args = ["-k", str(m), "--n-policy", policy, "--seed", "5", "--check",
+            "-t", "8", str(path)]
+    assert jax_main(["-o", str(tmp_path / "jax.bwt"), *args]) == 0
+    assert torch_main(["-o", str(tmp_path / "port.bwt"), "--device", "cpu",
+                       *args]) == 0
+    assert _outputs(tmp_path / "port.bwt") == _outputs(tmp_path / "jax.bwt")
+
+
+def test_cli_timings_and_unwritable_output(tmp_path, rng, capsys):
+    path = tmp_path / "in.fa"
+    _write_fasta(path, _reads(rng, 3))
+    assert torch_main(["-o", str(tmp_path / "o.bwt"), "--device", "cpu",
+                       "--timings", str(path)]) == 0
+    err = capsys.readouterr().err
+    assert "stage_graph" in err and "Mbp/s" in err
+    assert torch_main(["-o", str(tmp_path / "no" / "o.bwt"), "--device",
+                       "cpu", str(path)]) == 1
+
+
+def test_cli_default_device_needs_a_card(tmp_path, rng, monkeypatch):
+    path = tmp_path / "in.fa"
+    _write_fasta(path, _reads(rng, 2))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_main(["-o", str(tmp_path / "o.bwt"), str(path)])
+
+
+@pytest.mark.parametrize("fmt", ["fasta", "fastq", "fasta.gz"])
+@pytest.mark.parametrize("policy", ["reject", "random", "to-g"])
+def test_read_collection_matches_jax(tmp_path, rng, fmt, policy):
+    alphabet = {"reject": "ACGT", "random": "ACGTNRYSWKM", "to-g": "ACGTN"}[policy]
+    reads = _reads(rng, 5, alphabet)
+    path = tmp_path / f"in.{fmt}"
+    if fmt == "fastq":
+        with open(path, "w") as f:
+            for i, r in enumerate(reads):
+                f.write(f"@q{i}\n{r}\n+\n{'I' * len(r)}\n")
+    elif fmt == "fasta.gz":
+        with gzip.open(path, "wt") as f:
+            f.write("".join(f">r{i}\n{r}\n" for i, r in enumerate(reads)))
+    else:
+        _write_fasta(path, reads, width=33)
+    got = read_collection(str(path), policy, 9)
+    want = jax_read_collection(str(path), policy, 9)
+    np.testing.assert_array_equal(got.x2, want.x2)
+    np.testing.assert_array_equal(got.sep, want.sep)
+
+
+def test_writer_roundtrip(tmp_path, rng):
+    coll = SequenceCollection.from_reads(_reads(rng, 4))
+    g = golden_bwt(coll)
+    write_bwt(g, str(tmp_path / "o.bwt"))
+    bwt6, sharp, dollar = read_bwt(str(tmp_path / "o.bwt"), coll.bwt_len)
+    np.testing.assert_array_equal(bwt6, g.bwt6)
+    np.testing.assert_array_equal(sharp, g.sharp_pos)
+    assert dollar == g.dollar_pos
+
+
+def test_import_loads_no_jax():
+    """Importing every module of the port (and chip_smoke) loads neither
+    jax nor any module of the JAX package. Runs in a fresh interpreter,
+    since this test process has both loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import debwt_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    debwt_tpu_torch.__path__, 'debwt_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'debwt_tpu')]\n"
+        "assert not bad, bad\n"
+        "assert len(names) >= 15, names\n"
+        "print(len(names))\n"
+    )
+    root = os.path.join(SRC, "..")
+    rc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={"PYTHONPATH": f"{SRC}{os.pathsep}{root}", "PATH": "/usr/bin:/bin",
+             "HOME": os.environ.get("HOME", "/tmp")},
+        cwd=root, timeout=120,
+    )
+    assert rc.returncode == 0, rc.stderr

@@ -1,0 +1,112 @@
+"""The port's engine stages against the JAX engine on identical padded
+inputs (pipeline.stage_inputs), on the CPU. All data is integer: every
+comparison is exact."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from debwt_tpu import engine as jengine
+from debwt_tpu_torch import engine as tengine
+from debwt_tpu_torch.ops import keys_from_pair, pair_from_keys
+from debwt_tpu_torch.pipeline import _bucket, _pow2, stage_inputs
+from debwt_tpu_torch.types import SequenceCollection
+
+GRAPH_OUT = ("bwt6_partial", "ev_key", "mi_row", "seg_start", "r_pos",
+             "bwt_char", "L", "B", "x2p")
+
+
+@pytest.fixture
+def coll():
+    # the fixture of tests/test_engine.py
+    rng = np.random.default_rng(3)
+    frags = ["".join(rng.choice(list("ACGT"), size=25)) for _ in range(4)]
+    reads = [
+        "".join(rng.choice(frags) for _ in range(4)) for _ in range(4)
+    ] + ["".join(rng.choice(list("ACGT"), size=120)) for _ in range(3)]
+    return SequenceCollection.from_reads(reads)
+
+
+def _graphs(coll, m):
+    inp = stage_inputs(coll, m)
+    s_hi, s_lo = pair_from_keys(inp.spec_key)
+    j = jengine.stage_graph(
+        jnp.asarray(inp.x2w), jnp.asarray(inp.sep_pos), jnp.asarray(s_hi),
+        jnp.asarray(s_lo), jnp.asarray(inp.spec_char6),
+        jnp.asarray(inp.spec_branch), jnp.int32(inp.n_real), m, inp.N_cap,
+    )
+    t = tengine.stage_graph(
+        torch.from_numpy(inp.x2w.view(np.int32)),
+        torch.from_numpy(inp.sep_pos), torch.from_numpy(inp.spec_key),
+        torch.from_numpy(inp.spec_char6), torch.from_numpy(inp.spec_branch),
+        inp.n_real, m, inp.N_cap,
+    )
+    return inp, [np.asarray(a) for a in j], [a.numpy() for a in t]
+
+
+@pytest.mark.parametrize("m", [12, 24, 32])
+def test_stage_graph_matches_jax(coll, m):
+    """All nine outputs, every row: the graph sort's third key is
+    distinct on every row, so its order is fully determined."""
+    _inp, j, t = _graphs(coll, m)
+    for name, a, b in zip(GRAPH_OUT, j, t):
+        if name == "ev_key":
+            a = a.astype(np.int64)        # uint32 with SENT 0xFFFFFFFF
+        np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+@pytest.mark.parametrize("m", [12, 24, 32])
+def test_stage_finish_matches_jax(coll, m):
+    """stage_finish of the port and of JAX, each fed the JAX graph
+    outputs: all outputs are final (BWT, packed words, sidecars,
+    counts), so they agree on every row."""
+    inp, j, _t = _graphs(coll, m)
+    (bwt6_partial, ev_key, mi_row, seg_start, r_pos, bwt_char, L, B, x2p) = j
+    L, B = int(L), int(B)
+    caps = (m, inp.N_cap, _bucket(L), _bucket(B), _pow2(coll.n_reads))
+    want = jengine.stage_finish(
+        *(jnp.asarray(a) for a in
+          (x2p, ev_key, mi_row, seg_start, r_pos, bwt_char, bwt6_partial,
+           inp.spec_branch)),
+        jnp.int32(inp.n_real), *caps,
+    )
+    got = tengine.stage_finish(
+        *(torch.from_numpy(np.array(a)) for a in
+          (x2p, ev_key.astype(np.int64), mi_row, seg_start, r_pos, bwt_char,
+           bwt6_partial, inp.spec_branch)),
+        inp.n_real, *caps,
+    )
+    names = ("bwt6", "packed", "sharp", "dollar", "n_sharp", "counts6")
+    for name, a, b in zip(names, want, got):
+        a, b = np.asarray(a), b.numpy()
+        if name == "packed":
+            b = b.view(np.uint32)
+        np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+@pytest.mark.parametrize(
+    "M,L_dyn,period",
+    [(8, 8, 3), (64, 50, 7), (3000, 2900, 41), (5000, 5000, 1), (4000, 1, 1)],
+)
+def test_suffix_ranks_matches_jax(rng, M, L_dyn, period):
+    """Periodic SP strings (long repeats: several tripling rounds) with
+    capacity padding past L_dyn; live rows [0, L_dyn) compared."""
+    unit = rng.integers(0, 6, size=period).astype(np.uint8)
+    sp6 = np.resize(unit, M)
+    sp6[L_dyn:] = 0
+    sp6[rng.random(M) < 0.001] = 5
+    want = np.asarray(jengine._suffix_ranks(jnp.asarray(sp6), jnp.int32(L_dyn)))
+    got = tengine._suffix_ranks(torch.from_numpy(sp6), L_dyn).numpy()
+    np.testing.assert_array_equal(got[:L_dyn], want[:L_dyn])
+
+
+def test_spec_keys_convert(coll):
+    """stage_inputs' int64 special keys split into the JAX (hi, lo)
+    pairs exactly, pad rows included (all ones)."""
+    inp = stage_inputs(coll, 32)
+    hi, lo = pair_from_keys(inp.spec_key)
+    np.testing.assert_array_equal(keys_from_pair(hi, lo), inp.spec_key)
+    pad = inp.spec_key == -1
+    assert pad.any()
+    assert (hi[pad] == 0xFFFFFFFF).all() and (lo[pad] == 0xFFFFFFFF).all()
