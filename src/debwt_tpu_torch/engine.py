@@ -101,7 +101,7 @@ def stage_graph(
     # groups by node AND by real choice char for free. Keys are flipped
     # into signed order; only equality and the low 2 bits are read
     # after the sort, so they stay flipped.
-    wkey = ops.window_keys(x2p[: N + m - 1], m)
+    wkey = ops.window_keys_packed(x2w, m, N)
     r_key = torch.cat([
         torch.where(is_main, wkey, -1),
         (spec_key << 2) | 3,           # spec62<<2 | T-fill; pads stay -1

@@ -15,13 +15,14 @@ between i and the far end of the scan. Callers mask with STOP - 1 (the
 Pallas kernel and the JAX package's XLA sweep already disagree above
 the fact bits).
 
-On a CUDA tensor the wrapper launches the hand-written reduce-then-scan
-kernel in `csrc/seg_or.cu` (three launches, blocks of TILE words; bound
-by bytes). On a CPU tensor it runs `seg_scan_or_plain`, the log-shift
-sweep of the JAX package's `_seg_or_xla` with the identity as fill.
-`seg_scan_or_tiled` replays the kernel's own decomposition (warps,
-tiles, carries) in torch, so the carry logic is tested where the kernel
-cannot run.
+On a CUDA tensor the wrapper launches the hand-written kernel in
+`csrc/seg_or.cu`: one pass with decoupled look-back, tiles of TILE
+words, each word read once and written once (bound by bytes). On a CPU
+tensor it runs `seg_scan_or_plain`, the log-shift sweep of the JAX
+package's `_seg_or_xla` with the identity as fill. `seg_scan_or_tiled`
+replays the kernel's own decomposition (physical tiles, chunks, warp
+ladders, descriptors, look-back windows) in torch, so that logic is
+tested where the kernel cannot run.
 """
 
 from __future__ import annotations
@@ -32,9 +33,14 @@ import torch
 
 from debwt_tpu_torch.kernels import _build
 
-TILE = 1024          # words per block; must equal csrc/seg_or.cu kTile
+# The kernel's decomposition; TILE must equal csrc/seg_or.cu kTile.
 WARP = 32
-CARRY_THREADS = 1024  # threads of the carry-scan block (kCarryThreads)
+CHUNK = 4            # words per 16-byte load
+ROWS = 4             # chunks per thread: a warp owns ROWS rows of WARP chunks
+WARPS = 8            # warps per block
+TILE = WARPS * ROWS * WARP * CHUNK   # 4096 words per block
+WINDOW = 32          # descriptors per look-back step
+EMPTY, AGGREGATE, INCLUSIVE = 0, 1, 2
 
 
 def _check_stop(stop_bit: int) -> None:
@@ -73,53 +79,112 @@ def _scan_rows(x: torch.Tensor, stop: int) -> torch.Tensor:
     return x
 
 
-def _block_scan(x: torch.Tensor, stop: int) -> torch.Tensor:
-    """The kernel's block_scan on rows of TILE values: warp ladders,
-    then warp 0 scans the 32 warp totals, then each warp > 0 folds in
-    the total of the warps before it."""
-    rows = x.shape[0]
-    x = _scan_rows(x.view(rows, TILE // WARP, WARP), stop)
-    tot = _scan_rows(x[:, :, -1], stop)
-    before = torch.cat([torch.zeros_like(tot[:, :1]), tot[:, :-1]], dim=1)
-    warp = torch.arange(TILE // WARP, device=x.device)
-    x = torch.where((warp > 0)[:, None], _op(before[:, :, None], x, stop), x)
-    return x.reshape(rows, TILE)
+def _tile_scan(x: torch.Tensor, stop: int):
+    """The kernel's work inside a block, on rows of TILE words in
+    logical order. Returns (c, warp_carry, pre, agg): c the chunk-local
+    inclusive scans, shaped (tiles, WARPS, ROWS, WARP, CHUNK);
+    warp_carry the fold of the warps before each warp; pre the fold of
+    its own warp before each chunk; agg the fold of each whole tile."""
+    n = x.shape[0]
+    x = x.view(n, WARPS, ROWS, WARP, CHUNK)
+    cols = [x[..., 0]]
+    for k in range(1, CHUNK):             # a thread's serial scan
+        cols.append(_op(cols[-1], x[..., k], stop))
+    c = torch.stack(cols, dim=-1)
+    s = _scan_rows(c[..., -1], stop)      # one ladder per warp row
+    before = torch.cat([torch.zeros_like(s[..., :1]), s[..., :-1]], dim=-1)
+    row_carry = torch.zeros_like(s[:, :, 0, 0])
+    pre = []
+    for j in range(ROWS):                 # a warp's rows chain serially
+        pre.append(_op(row_carry[..., None], before[:, :, j], stop))
+        row_carry = _op(row_carry, s[:, :, j, -1], stop)
+    pre = torch.stack(pre, dim=2)
+    agg = torch.zeros_like(row_carry[:, 0])
+    warp_carry = []
+    for v in range(WARPS):                # every thread folds the warp totals
+        warp_carry.append(agg)
+        agg = _op(agg, row_carry[:, v], stop)
+    warp_carry = torch.stack(warp_carry, dim=1)
+    return c, warp_carry, pre, agg
 
 
-def _carry_scan(agg: torch.Tensor, stop: int) -> torch.Tensor:
-    """The kernel's seg_or_carry: CARRY_THREADS threads each fold a run
-    of `per` tile aggregates, one block scan, then each thread writes
-    its tiles' exclusive carries serially."""
-    n = agg.shape[0]
-    per = -(-n // CARRY_THREADS)
-    a = torch.zeros(CARRY_THREADS * per, dtype=agg.dtype, device=agg.device)
-    a[:n] = agg
-    a = a.view(CARRY_THREADS, per)
-    acc = torch.zeros(CARRY_THREADS, dtype=agg.dtype, device=agg.device)
-    for j in range(per):
-        acc = _op(acc, a[:, j], stop)
-    incl = _block_scan(acc.view(1, CARRY_THREADS), stop).view(-1)
-    run = torch.cat([incl.new_zeros(1), incl[:-1]])
-    carry = torch.empty_like(a)
-    for j in range(per):
-        carry[:, j] = run
-        run = _op(run, a[:, j], stop)
-    return carry.reshape(-1)[:n]
+def _look_back(status, value, tile: int, stop: int):
+    """The kernel's look_back for logical tile `tile` > 0 over the
+    descriptors (status, value) as Python lists: windows of WINDOW
+    descriptors, nearest first, each folded in order with the shuffle
+    ladder, up to the nearest inclusive descriptor. Returns the fold of
+    every tile before `tile` and the number of windows read."""
+    lane = torch.arange(WINDOW)
+    carry = 0
+    top = tile - 1
+    windows = 0
+    while True:
+        windows += 1
+        tiles = [top - i for i in range(WINDOW)]
+        st = [status[t] if t >= 0 else INCLUSIVE for t in tiles]
+        incl = [i for i, q in enumerate(st) if q == INCLUSIVE]
+        last = incl[0] if incl else WINDOW - 1
+        assert EMPTY not in st[: last + 1], "look-back would spin forever"
+        v = torch.tensor(
+            [value[t] if t >= 0 and i <= last else 0 for i, t in enumerate(tiles)],
+            dtype=torch.int32,
+        )
+        s = 1
+        while s < WINDOW:                 # lane + s is the EARLIER tile
+            y = torch.cat([v[s:], torch.zeros(s, dtype=torch.int32)])
+            v = torch.where(lane + s < WINDOW, _op(y, v, stop), v)
+            s *= 2
+        carry = int(_op(v[:1], torch.tensor([carry], dtype=torch.int32), stop))
+        if incl:
+            return carry, windows
+        top -= WINDOW
 
 
-def seg_scan_or_tiled(words: torch.Tensor, stop_bit: int, prefix: bool):
-    """CPU replay of the CUDA kernel: logical order, TILE-word tiles
-    padded with the identity, reduce, carry scan, rescan."""
+def seg_scan_or_tiled(
+    words: torch.Tensor, stop_bit: int, prefix: bool, lookback: str = "inclusive"
+):
+    """CPU replay of the CUDA kernel's decomposition. Tiles are anchored
+    at physical multiples of TILE and padded with the identity, so the
+    ragged tile is the last logical tile of the prefix direction and the
+    first of the suffix direction. `lookback` fixes what a tile finds
+    when it looks back, which on the card depends on timing:
+
+      "inclusive"  every earlier tile has published its inclusive prefix
+                   (the look-back ends at the previous tile);
+      "aggregate"  no earlier tile has, beyond what it knows alone: its
+                   aggregate, which is inclusive only for tile 0 and for
+                   an aggregate that carries STOP.
+
+    Both give the plain version's whole words."""
     _check_stop(stop_bit)
+    if lookback not in ("inclusive", "aggregate"):
+        raise ValueError(f"lookback must be 'inclusive' or 'aggregate', got {lookback!r}")
+    words = words.cpu()
     R = words.shape[0]
-    logical = words if prefix else words.flip(0)
     n_tiles = -(-R // TILE)
-    x = torch.zeros(n_tiles * TILE, dtype=torch.int32, device=words.device)
-    x[:R] = logical
-    incl = _block_scan(x.view(n_tiles, TILE), stop_bit)
-    carry = _carry_scan(incl[:, -1].contiguous(), stop_bit)
-    out = _op(carry[:, None], incl, stop_bit).reshape(-1)[:R]
-    return out if prefix else out.flip(0)
+    x = torch.zeros(n_tiles * TILE, dtype=torch.int32)
+    x[:R] = words
+    if not prefix:          # logical order: mirror tiles and words alike
+        x = x.flip(0)
+    c, warp_carry, pre, agg = _tile_scan(x.view(n_tiles, TILE), stop_bit)
+    agg_l = agg.tolist()
+    status, value, carries = [], [], []
+    for t in range(n_tiles):              # tiles in ticket order
+        closed = t == 0 or (agg_l[t] & stop_bit) != 0
+        status.append(INCLUSIVE if closed else AGGREGATE)
+        value.append(agg_l[t])
+        carry = _look_back(status, value, t, stop_bit)[0] if t else 0
+        carries.append(carry)
+        if lookback == "inclusive" and not closed:
+            a = torch.tensor([agg_l[t]], dtype=torch.int32)
+            status[t] = INCLUSIVE
+            value[t] = int(_op(torch.tensor([carry], dtype=torch.int32), a, stop_bit))
+    carry = torch.tensor(carries, dtype=torch.int32)
+    p = _op(_op(carry[:, None], warp_carry, stop_bit)[:, :, None, None], pre, stop_bit)
+    out = _op(p[..., None], c, stop_bit).reshape(-1)
+    if not prefix:
+        out = out.flip(0)
+    return out[:R]
 
 
 def _lib():
@@ -128,7 +193,7 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         lib.debwt_seg_or_tile.argtypes = []
@@ -159,11 +224,11 @@ def seg_scan_or(
     if R == 0:
         return out
     n_tiles = -(-R // TILE)
-    scratch = torch.empty(2 * n_tiles, dtype=torch.int32, device=words.device)
+    # one zeroed 64-bit descriptor a tile, then the ticket
+    scratch = torch.zeros(n_tiles + 1, dtype=torch.int64, device=words.device)
     rc = _lib()(
         words.data_ptr(), out.data_ptr(), R, stop_bit, int(prefix),
-        scratch.data_ptr(), scratch[n_tiles:].data_ptr(),
-        torch.cuda.current_stream(words.device).cuda_stream,
+        scratch.data_ptr(), torch.cuda.current_stream(words.device).cuda_stream,
     )
     _build.check(rc, "seg_scan_or launch")
     seg_scan_or.launches += 1

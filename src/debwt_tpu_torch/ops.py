@@ -20,6 +20,9 @@ import numpy as np
 import torch
 
 from debwt_tpu_torch.kernels.window_keys import window_keys as _window_keys
+from debwt_tpu_torch.kernels.window_keys import (
+    window_keys_packed as _window_keys_packed,
+)
 
 SIGN = -(1 << 63)   # int64 with only the top bit set
 
@@ -30,6 +33,14 @@ def window_keys(x2: torch.Tensor, w: int) -> torch.Tensor:
     key(p) = sum_i x2[p+i] * 4**(w-1-i). Kernel 1
     (kernels/window_keys.py) on CUDA, its plain version on the CPU."""
     return _window_keys(x2, w, x2.shape[0] - w + 1)
+
+
+def window_keys_packed(x2w: torch.Tensor, w: int, n_out: int) -> torch.Tensor:
+    """The first n_out of those keys straight from the 2-bit packed text
+    x2w (int32 words, the layout of pack_2bit_words_host), without the
+    unpack: kernel 1's packed entry on CUDA, unpack plus the plain
+    version on the CPU."""
+    return _window_keys_packed(x2w, w, n_out)
 
 
 def _sort_words(keys):

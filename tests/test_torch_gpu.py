@@ -15,6 +15,7 @@ import torch
 from debwt_tpu_torch.golden import golden_bwt
 from debwt_tpu_torch.kernels import seg_or
 from debwt_tpu_torch.kernels import window_keys as wk
+from debwt_tpu_torch.ops import pack_2bit_words
 from debwt_tpu_torch.pipeline import build_bwt
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 
@@ -51,6 +52,37 @@ def test_window_keys_kernel_matches_plain(cuda, gen, n_out, w):
     assert torch.equal(got, wk.window_keys_plain(x, w, n_out))
 
 
+@pytest.mark.parametrize(
+    "n_out,w",
+    [(5000, 32), (5000, 31), (PALLAS_TILE, 24), (PALLAS_TILE + 1, 23),
+     (3 * PALLAS_TILE + 17, 29), (20000, 12), (9000, 2), (1, 32), (1025, 1),
+     (4081, 16), (33, 32), (100, 5), (2048, 32), (2049, 32)],
+)
+def test_window_keys_packed_kernel_matches_plain(cuda, gen, n_out, w):
+    """The packed entry, also where the last word is partial and where
+    W[j+1] or W[j+2] would lie past the end of the words."""
+    x = torch.randint(0, 4, (n_out + w - 1,), generator=gen, device=cuda,
+                      dtype=torch.uint8)
+    x2w = pack_2bit_words(x)
+    before = wk.window_keys.launches
+    got = wk.window_keys_packed(x2w, w, n_out)
+    assert wk.window_keys.launches == before + 1
+    assert torch.equal(got, wk.window_keys_packed_plain(x2w, w, n_out))
+    assert torch.equal(got, wk.window_keys_plain(x, w, n_out))
+    assert torch.equal(got, wk.window_keys_words_replay(x2w, w, n_out))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 16, 17])
+@pytest.mark.parametrize("w", [32, 13])
+def test_window_keys_kernel_on_misaligned_slice(cuda, gen, offset, w):
+    """uint8 codes that start at an odd byte offset of their tensor."""
+    n_out = 3 * 2048 + 5
+    x = torch.randint(0, 4, (offset + n_out + w - 1,), generator=gen,
+                      device=cuda, dtype=torch.uint8)
+    got = wk.window_keys(x[offset:], w, n_out)
+    assert torch.equal(got, wk.window_keys_plain(x[offset:].clone(), w, n_out))
+
+
 def test_window_keys_kernel_tail_isolated(cuda, gen):
     n_out, w = 6000, 32
     base = torch.randint(0, 4, (n_out + w - 1 + 500,), generator=gen,
@@ -64,13 +96,15 @@ def test_window_keys_kernel_tail_isolated(cuda, gen):
 @pytest.mark.parametrize("stop", [1 << 6, 1 << 29])
 @pytest.mark.parametrize("prefix", [False, True])
 @pytest.mark.parametrize(
-    "R", [1, 127, seg_or.TILE, seg_or.TILE + 1, 3 * seg_or.TILE + 17,
-          PALLAS_TILE + 1, 70001, (2 * seg_or.CARRY_THREADS + 5) * seg_or.TILE],
+    "R", [1, 127, seg_or.TILE, seg_or.TILE + 1, seg_or.TILE + 2,
+          seg_or.TILE + 3, 3 * seg_or.TILE + 17, PALLAS_TILE + 1, 70001,
+          (32 * 32 + 5) * seg_or.TILE + 1],
 )
 @pytest.mark.parametrize("p_stop", [0.05, 0.0])
 def test_seg_scan_or_kernel_matches_plain(cuda, gen, R, prefix, stop, p_stop):
-    """p_stop = 0: one segment spans every tile (the carry crosses all
-    tile boundaries)."""
+    """p_stop = 0: one segment spans every tile (the look-back windows
+    chain). R mod 4 takes every value; the largest R has more tiles than
+    32 look-back windows."""
     bits = torch.randint(0, stop, (R,), generator=gen, device=cuda,
                          dtype=torch.int32)
     is_stop = torch.rand(R, generator=gen, device=cuda) < p_stop
@@ -80,6 +114,32 @@ def test_seg_scan_or_kernel_matches_plain(cuda, gen, R, prefix, stop, p_stop):
     got = seg_or.seg_scan_or(words, stop_bit=stop, prefix=prefix)
     assert seg_or.seg_scan_or.launches == before + 1
     assert torch.equal(got, seg_or.seg_scan_or_plain(words, stop, prefix))
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_seg_scan_or_kernel_on_misaligned_slice(cuda, gen, offset, prefix):
+    """Words that start off a 16-byte boundary take the scalar loads."""
+    stop = 1 << 6
+    R = 5 * seg_or.TILE + 9
+    words = torch.randint(0, 2 * stop, (offset + R,), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    words[offset if prefix else -1] |= stop
+    got = seg_or.seg_scan_or(words[offset:], stop_bit=stop, prefix=prefix)
+    want = seg_or.seg_scan_or_plain(words[offset:].clone(), stop, prefix)
+    assert torch.equal(got, want)
+
+
+def test_seg_scan_or_kernel_repeated_launches(cuda, gen):
+    """Every launch gets fresh descriptors and a fresh ticket."""
+    stop = 1 << 29
+    R = 300 * seg_or.TILE + 2
+    words = torch.randint(0, stop, (R,), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    words[0] |= stop
+    want = seg_or.seg_scan_or_plain(words, stop, True)
+    for _ in range(5):
+        assert torch.equal(seg_or.seg_scan_or(words, stop, True), want)
 
 
 @pytest.mark.parametrize("m", [12, 24, 32])

@@ -128,3 +128,44 @@ def test_api_routes_single_and_refuses_larger(monkeypatch):
     monkeypatch.setattr(api, "_SINGLE_ROWS", 64)
     with pytest.raises(NotImplementedError, match="out-of-core"):
         api.build(coll, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "free_memory,fits",
+    [(80 * 2**30, True),                    # a whole card: the tiny input fits
+     (api._BYTES_PER_ROW * 113, True),       # holds 113 rows: 112 < 113
+     (api._BYTES_PER_ROW * 113 - 1, False),  # holds 112 rows: one too few
+     (1, False)],
+)
+def test_api_bounds_single_tier_by_card_memory(monkeypatch, free_memory, fits):
+    """On a CUDA device a collection whose rows exceed what the card's
+    memory holds raises NotImplementedError before anything is allocated
+    (not an out-of-memory error from the engine)."""
+    coll = SequenceCollection.from_reads(["ACGT" * 10, "TTGCA" * 7])
+    assert api.rows_needed(coll, 12) == 112   # _bucket(77) = 80, _pow2(22) = 32
+    cuda = torch.device("cuda", 0)
+    monkeypatch.setattr(api, "resolve_device", lambda device=None: cuda)
+    monkeypatch.setattr(api, "_device_memory_bytes", lambda dev: free_memory)
+    built = []
+    monkeypatch.setattr(
+        api, "build_bwt", lambda coll, config, device: built.append(device)
+    )
+    if fits:
+        api.build(coll, PipelineConfig(m=12))
+        assert built == [cuda]
+    else:
+        with pytest.raises(NotImplementedError, match="card's memory"):
+            api.build(coll, PipelineConfig(m=12))
+        assert built == []
+
+
+def test_single_rows_bound_is_the_smaller_of_engine_and_memory(monkeypatch):
+    monkeypatch.setattr(api, "_device_memory_bytes", lambda dev: 1 << 62)
+    assert api.single_rows_bound(torch.device("cuda")) == api.MAX_ROWS
+    monkeypatch.setattr(
+        api, "_device_memory_bytes", lambda dev: 1000 * api._BYTES_PER_ROW
+    )
+    assert api.single_rows_bound(torch.device("cuda")) == 1000
+    # the CPU is not asked for its memory
+    monkeypatch.setattr(api, "_device_memory_bytes", lambda dev: 1 / 0)
+    assert api.single_rows_bound(torch.device("cpu")) == api.MAX_ROWS
