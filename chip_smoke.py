@@ -16,9 +16,12 @@ Phases, in order; any failure ends the script with a non-zero code:
            loaders (packed words, uint8 codes, also on slices at odd
            byte offsets), seg_scan_or in both directions with every
            R mod 4 and with one segment across more than 32 x 32 tiles,
-           the scan cases twice over; CUDA-event times at the main-path
-           shape beside the bound, the plain version's time and a plain
-           fill or copy of the same bytes
+           the scan cases twice over; window_keys' packed entry on
+           word-offset slices of the words (the grouped tier's call) and
+           seg_scan_or at the grouped tier's selection and classification
+           shapes; CUDA-event times at the main-path shapes beside the
+           bound, the plain version's time and a plain fill or copy of
+           the same bytes
   e2e      the main path through api.build: a small collection against
            the golden BWT, then 4.6 and 140 Mbp of the synthetic
            near-identical-genome collection (m = 32) against the reference
@@ -30,7 +33,21 @@ Phases, in order; any failure ends the script with a non-zero code:
            the device's idle share); last, one build of the largest
            collection under api.single_rows_bound (410 Mbp on an 80 GB
            card) with the character counts checked, its peak memory
-           beside the bound; a card too small for it must refuse it
+           beside the bound; a card too small for it must refuse it;
+           the grouped tier then builds the same collection and must
+           give the same hashes
+  verify   lf_verify (full walk, native walker) on the 4.6 Mbp result and
+           on a copy with one flipped character, which must fail;
+           count_kmers at m = 32 against a host count of the same keys
+  grouped  the grouped tier (grouped.build_bwt_grouped): 140 Mbp with a
+           cap and a chunk that force at least 4 groups and 4 chunks,
+           against the reference hashes, the kernels' launch counts
+           against the plan, then one such build under torch.profiler;
+           then the main path of this tier at full width: 600 Mbp, over
+           the single-device bound of any card, through api.build with
+           the default cap; it must take the grouped tier, pass the
+           character-count check, hold one '$' and n_reads - 1 '#', and
+           pass a bounded LF walk on the sampled-occ path
 
 The lines before the last are the `kernels` JSON object and the card's
 name and power limit; the last is {"ok": true, "device": {...}}.
@@ -58,6 +75,14 @@ PALLAS_TILE = 8192          # the JAX kernels' tile, used by the CPU tests
 E2E_MBP = (4.6, 140.0)
 NEAR_BOUND_MBP = 410.0      # rows 469,762,176: the last bucket under 2^29
 EXPECTED_LAUNCHES = {"window_keys": 1, "seg_scan_or": 4}
+SEL_C = 1 << 27             # the grouped tier's default selection chunk
+SEL_R = SEL_C + 33          # its separator scan: C + k + 2 words at m = 32
+CLS_R = 402_653_184 + 64    # a classification: 600 Mbp in 2 groups + ns_cap
+GROUPED_MBP = 140.0         # against the reference hashes, in >= 4 groups
+GROUPED_CAP = 48_000_000
+GROUPED_CHUNK = 1 << 25
+FULL_MBP = 600.0            # rows_needed > 2^29: over any card's bound
+VERIFY_STEPS = 1 << 22
 
 
 def say(*a):
@@ -120,8 +145,9 @@ def phase_build():
     from debwt_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    say(f"[build] {len(logs)} kernel libraries in "
+    logs = _build.build_all(_build.SOURCES + _build.HOST_SOURCES)
+    say(f"[build] {len(_build.SOURCES)} kernel libraries and "
+        f"{len(_build.HOST_SOURCES)} host helper in "
         f"{time.perf_counter() - t0:.1f}s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name, log in logs.items():
         for line in log.strip().splitlines():
@@ -165,6 +191,11 @@ def phase_kernels(dev, rows: dict):
             if n_out > off:
                 wk.check(window_keys(x[off:], w, n_out - off), want[off:],
                          f"uint8 x[{off}:] n_out={n_out} w={w}")
+        for off in (1, 3):              # slices of words (the grouped tier)
+            if n_out > 16 * off:
+                wk.check(window_keys_packed(x2w[off:], w, n_out - 16 * off),
+                         want[16 * off:],
+                         f"packed x2w[{off}:] n_out={n_out} w={w}")
     n_out, w = 6000, 32                 # tail isolation, both loaders
     base = codes(n_out + w - 1 + 500)
     other = base.clone()
@@ -183,7 +214,20 @@ def phase_kernels(dev, rows: dict):
     wk.check(window_keys(x, w, n_out), want, f"uint8 n_out={n_out} w={w}")
     wk.check(window_keys(x[1:], w, n_out - 1), want[1:],
              f"uint8 x[1:] n_out={n_out} w={w}")
+    # the grouped tier's call: a chunk of SEL_C keys from a slice that
+    # starts at the chunk's word (1 is the prologue's word: 4 bytes off
+    # a 16-byte boundary)
+    for off in (1, 7, SEL_C // 16 // 4):
+        wk.check(window_keys_packed(x2w[off:], w, SEL_C),
+                 want[16 * off : 16 * off + SEL_C],
+                 f"packed x2w[{off}:] n_out={SEL_C} w={w}")
     del want
+    sel_words = x2w[1 : 1 + (SEL_C + 48) // 16]
+    ms_sel = cuda_ms(lambda: window_keys_packed(sel_words, w, SEL_C), reps=20)
+    plain_sel = cuda_ms(lambda: window_keys_packed_plain(sel_words, w, SEL_C),
+                        reps=3, warm=1)
+    b_sel, b_sel_by = bound_ms((SEL_C + w - 1) / 4 + 8 * SEL_C, 3 * SEL_C)
+    del sel_words
     ms = cuda_ms(lambda: window_keys_packed(x2w, w, n_out), reps=20)
     ms_u8 = cuda_ms(lambda: window_keys(x, w, n_out), reps=20)
     ms_u8_off = cuda_ms(lambda: window_keys(x[1:], w, n_out - 1), reps=20)
@@ -207,7 +251,13 @@ def phase_kernels(dev, rows: dict):
         replaces="src/debwt_tpu/kernels/window_keys.py:98",
         launches=None, max_abs_err=wk.max_abs_err, ms=ms, plain_ms=plain,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        grouped_shapes=[dict(
+            shape=f"packed words from x2w[1:], n_out {SEL_C}, w {w}",
+            ms=ms_sel, plain_ms=plain_sel, bound_ms=b_sel, bound_by=b_sel_by)],
     )
+    say(f"[kernels] window_keys packed loader on the word slice x2w[1:] "
+        f"n_out={SEL_C} w={w}: {ms_sel:.4f} ms (bound {b_sel:.4f} ms by "
+        f"{b_sel_by}, plain {plain_sel:.4f} ms)")
     say(f"[kernels] window_keys uint8 loader n_out={n_out} w={w}: "
         f"{ms_u8:.4f} ms, on x[1:] {ms_u8_off:.4f} ms "
         f"(bound {b_u8:.4f} ms by {b_u8_by}, plain {plain_u8:.4f} ms)")
@@ -271,6 +321,7 @@ def phase_kernels(dev, rows: dict):
     # the card's own yardstick: a copy reads and writes the same bytes
     copy = cuda_ms(wd.clone, reps=20)
     del wd
+    grouped_shapes = _grouped_scan_shapes(dev, gen, so)
     ms, plain = timed[(1 << 6, False, 0.05)]
     # bytes: each word read once and written once; operations: the
     # carry combine (AND, select, OR) once per word
@@ -281,7 +332,12 @@ def phase_kernels(dev, rows: dict):
         replaces="src/debwt_tpu/kernels/seg_or.py:138",
         launches=None, max_abs_err=so.max_abs_err, ms=ms, plain_ms=plain,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        grouped_shapes=grouped_shapes,
     )
+    for g in grouped_shapes:
+        say(f"[kernels] seg_scan_or {g['shape']}: {g['ms']:.4f} ms "
+            f"(bound {g['bound_ms']:.4f} ms by {g['bound_by']}, "
+            f"plain {g['plain_ms']:.4f} ms)")
     for (stop, prefix, p_stop), (k_ms, p_ms) in timed.items():
         say(f"[kernels] seg_scan_or R={MAIN_R} stop=2^{stop.bit_length() - 1} "
             f"{'prefix' if prefix else 'suffix'} p_stop={p_stop}: {k_ms:.4f} ms "
@@ -289,6 +345,54 @@ def phase_kernels(dev, rows: dict):
     say(f"[kernels] seg_scan_or: {so.cases} cases equal (every case twice); "
         f"clone of the words {copy:.4f} ms")
     torch.cuda.empty_cache()
+
+
+def _grouped_scan_shapes(dev, gen, so: Parity) -> list:
+    """seg_scan_or at the grouped tier's shapes, checked and timed: the
+    selection's separator scan (R = C + k + 2, not a multiple of 4:
+    the ragged scalar path; position words under stop bit 2^29, a
+    separator every few hundred to few million rows) and the three
+    scans of a classification (R = cap_run + ns_cap)."""
+    import torch
+
+    from debwt_tpu_torch.kernels import seg_or
+
+    POS = 1 << 29
+    out = []
+
+    def run(words, stop, prefix, shape):
+        got = seg_or.seg_scan_or(words, stop_bit=stop, prefix=prefix)
+        so.check(got, seg_or.seg_scan_or_plain(words, stop, prefix), shape)
+        del got
+        R = words.shape[0]
+        b_ms, b_by = bound_ms(8 * R, 3 * R)
+        out.append(dict(
+            shape=shape,
+            ms=cuda_ms(lambda: seg_or.seg_scan_or(words, stop_bit=stop,
+                                                  prefix=prefix), reps=10),
+            plain_ms=cuda_ms(lambda: seg_or.seg_scan_or_plain(words, stop, prefix),
+                             reps=2, warm=1),
+            bound_ms=b_ms, bound_by=b_by))
+
+    idx = torch.arange(SEL_R, dtype=torch.int32, device=dev)
+    for every in (300, 30_000, 3_000_000):
+        is_sep = torch.rand(SEL_R, generator=gen, device=dev) < 1.0 / every
+        is_sep[-1] = True
+        run(torch.where(is_sep, idx | POS, 0), POS, False,
+            f"selection R={SEL_R} suffix 2^29, a separator every {every} rows")
+    del idx, is_sep
+    newseg = torch.rand(CLS_R, generator=gen, device=dev) < 0.3
+    newseg[0] = True
+    bits = torch.randint(0, 64, (CLS_R,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    stop = torch.cat([newseg[1:], newseg.new_ones(1)])
+    run(bits | (stop.to(torch.int32) << 6), 1 << 6, False,
+        f"classification R={CLS_R} suffix 2^6")
+    del bits, stop
+    idx = torch.arange(CLS_R, dtype=torch.int32, device=dev)
+    run(torch.where(newseg, idx, 0) | (newseg.to(torch.int32) << 29), POS, True,
+        f"classification R={CLS_R} prefix 2^29")
+    return out
 
 
 def _counters():
@@ -406,6 +510,7 @@ def phase_near_bound(dev):
     import torch
 
     from debwt_tpu_torch import api
+    from debwt_tpu_torch.grouped import build_bwt_grouped
     from debwt_tpu_torch.synth import synth_collection
     from debwt_tpu_torch.types import PipelineConfig
 
@@ -444,11 +549,247 @@ def phase_near_bound(dev):
         "peak_reserved_bytes_per_row": reserved / n_rows,
         "reserved_share_of_free": reserved / free,
     }))
-    del r, coll
+    # the grouped tier on the same collection, bit for bit: only the
+    # first result's hashes are kept, the two do not fit together
+    fused = _hashes(r)
+    del r
+    torch.cuda.empty_cache()
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = build_bwt_grouped(coll, config, stats=stats, device=dev)
+    dt = time.perf_counter() - t0
+    if _hashes(g) != fused:
+        raise AssertionError(
+            f"{NEAR_BOUND_MBP} Mbp: the grouped tier differs from the fused engine"
+        )
+    R = stats["cap_run"] + stats["ns_cap"]
+    reserved = torch.cuda.max_memory_reserved()
+    say(json.dumps({
+        "near_bound_grouped_equals_fused": True, "build_s": dt,
+        **_plan_of(stats), "stage_s": stats["stage_s"],
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "peak_reserved_bytes": reserved, "rows_largest_group": R,
+        "peak_reserved_bytes_per_group_row": reserved / R,
+    }))
+    del g, coll
     torch.cuda.empty_cache()
 
 
-def profile_build(fn, mbp: float):
+def _hashes(r) -> tuple:
+    import numpy as np
+
+    return (hashlib.sha256(r.packed()).hexdigest(),
+            hashlib.sha256(r.sharp_pos.astype(np.int64).tobytes()).hexdigest(),
+            int(r.dollar_pos))
+
+
+def _plan_of(stats: dict) -> dict:
+    keys = ("n_groups", "cap", "cap_run", "chunk", "n_chunks", "ns_cap",
+            "sp_len", "n_blue", "attempts", "groups_selected",
+            "groups_classified", "launches", "select_peak_bytes")
+    return {k: stats[k] for k in keys}
+
+
+def _check_grouped_counts(stats: dict, counts: dict, what: str):
+    """Launches against the plan: kernel 1 once a chunk of every group
+    scanned, kernel 2 once a chunk too and three times a group
+    classified; none from the back half. The wrappers' counters and the
+    build's own tally must both agree."""
+    sel = stats["groups_selected"] * stats["n_chunks"]
+    want = {"window_keys": sel,
+            "seg_scan_or": sel + 3 * stats["groups_classified"]}
+    if counts != want or stats["launches"] != want or min(want.values()) < 1:
+        raise AssertionError(
+            f"{what}: launches {counts} (tally {stats['launches']}), plan {want}"
+        )
+
+
+def phase_verify_count(dev):
+    """lf_verify accepts the 4.6 Mbp result and rejects a copy with one
+    flipped character; count_kmers equals a host count."""
+    import dataclasses
+
+    import numpy as np
+
+    from debwt_tpu_torch import count_kmers
+    from debwt_tpu_torch.api import build
+    from debwt_tpu_torch.synth import synth_collection
+    from debwt_tpu_torch.types import PipelineConfig
+    from debwt_tpu_torch.verify import _FAST_N, lf_verify
+
+    m = 32
+    coll = synth_collection(min(E2E_MBP))
+    N = coll.bwt_len
+    assert N < _FAST_N
+    r = build(coll, PipelineConfig(m=m), device=dev)
+    t0 = time.perf_counter()
+    if not lf_verify(r, coll):
+        raise AssertionError("lf_verify rejects the 4.6 Mbp result")
+    t_ok = time.perf_counter() - t0
+    bad = r.bwt6.copy()
+    bad[int(np.nonzero(bad < 4)[0][N // 3])] ^= 1
+    if lf_verify(dataclasses.replace(r, packed_words=None, _bwt6=bad), coll):
+        raise AssertionError("lf_verify accepts a BWT with a flipped character")
+    say(json.dumps({"lf_verify_mbp": min(E2E_MBP), "n": N, "walker": "native",
+                    "path": "full LF permutation", "accepts_result": True,
+                    "rejects_flipped_char": True, "full_walk_s": t_ok}))
+    del r, bad
+
+    # host count: the key of every separator-free m-window of coll.x2
+    x2p = np.concatenate([coll.x2, np.full(m, 3, np.uint8)])
+    pos = np.arange(N)
+    dist = coll.sep[np.searchsorted(coll.sep, pos)] - pos
+    mainp = np.nonzero(dist >= m)[0]
+    key = np.zeros(mainp.shape[0], np.uint64)
+    for i in range(m):
+        key = (key << np.uint64(2)) | x2p[mainp + i].astype(np.uint64)
+    want_k, want_c = np.unique(key, return_counts=True)
+    _reset_counts()
+    t0 = time.perf_counter()
+    got_k, got_c = count_kmers(coll, m, device=dev)
+    dt = time.perf_counter() - t0
+    counts = _read_counts()
+    if counts != {"window_keys": 1, "seg_scan_or": 0}:
+        raise AssertionError(f"count_kmers: launches {counts}")
+    if not (got_k.dtype == np.uint64 and np.array_equal(got_k, want_k)
+            and np.array_equal(got_c, want_c)):
+        raise AssertionError("count_kmers differs from the host count")
+    say(json.dumps({"count_kmers_mbp": min(E2E_MBP), "m": m,
+                    "distinct": int(got_k.shape[0]), "total": int(got_c.sum()),
+                    "equals_host_count": True, "seconds": dt,
+                    "launches": counts}))
+
+
+def phase_grouped(dev, rows: dict):
+    """The grouped tier: 140 Mbp in at least 4 groups and 4 chunks
+    against the reference hashes, a profile of one such build, then
+    600 Mbp at full width through api.build."""
+    import torch
+
+    from debwt_tpu_torch import api, grouped
+    from debwt_tpu_torch.synth import synth_collection
+    from debwt_tpu_torch.types import PipelineConfig
+    from debwt_tpu_torch.verify import _FAST_N, lf_verify
+
+    cache = json.loads((ROOT / ".bench_cache.json").read_text())
+    ref = cache[f"ref_mbp{GROUPED_MBP}"]
+    coll = synth_collection(GROUPED_MBP)
+    n_bases = coll.bwt_len - coll.n_reads
+    gcfg = grouped.GroupedConfig(cap=GROUPED_CAP, chunk=GROUPED_CHUNK)
+    config = PipelineConfig(m=32)
+    times = []
+    for rep in range(2):                # one warm-up, then one timed build
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        r = grouped.build_bwt_grouped(coll, config, gcfg, stats=stats, device=dev)
+        packed = r.packed()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = _read_counts()
+        if stats["n_groups"] < 4 or stats["n_chunks"] < 4 or stats["attempts"] != 1:
+            raise AssertionError(f"grouped {GROUPED_MBP} Mbp: plan {_plan_of(stats)}")
+        _check_grouped_counts(stats, counts, f"grouped {GROUPED_MBP} Mbp")
+        if _hashes(r) != (ref["obj_sha"], ref["sharp_sha"], ref["dollar"]):
+            raise AssertionError(
+                f"grouped {GROUPED_MBP} Mbp: output differs from the reference hashes"
+            )
+        del packed
+    R = stats["cap_run"] + stats["ns_cap"]
+    peak, reserved = (torch.cuda.max_memory_allocated(),
+                      torch.cuda.max_memory_reserved())
+    say(json.dumps({
+        "grouped_mbp": GROUPED_MBP, "n": coll.bwt_len, "m": 32,
+        "hashes_equal_reference": True, **_plan_of(stats),
+        "build_s": times[-1], "warmup_s": times[0],
+        "mbps": n_bases / 1e6 / times[-1], "stage_s": r.timings,
+        "peak_bytes": peak, "peak_reserved_bytes": reserved,
+        "rows_largest_group": R, "kernels_phase_classification_rows": CLS_R,
+        "peak_reserved_bytes_per_group_row": reserved / R,
+    }))
+    # the bounded walk on the sampled-occ path also at this size
+    assert coll.bwt_len >= _FAST_N
+    t0 = time.perf_counter()
+    if not lf_verify(r, coll, max_steps=VERIFY_STEPS):
+        raise AssertionError(f"grouped {GROUPED_MBP} Mbp: the LF walk fails")
+    say(json.dumps({"lf_verify_mbp": GROUPED_MBP, "n": coll.bwt_len,
+                    "walker": "native", "path": "sampled occ table",
+                    "steps": VERIFY_STEPS, "ok": True,
+                    "seconds": time.perf_counter() - t0}))
+    del r
+    profile_build(
+        lambda: grouped.build_bwt_grouped(coll, config, gcfg, device=dev).packed(),
+        f"grouped {GROUPED_MBP}",
+    )
+    del coll
+    torch.cuda.empty_cache()
+
+    # ---- the tier's main path at full width, through api.build ----
+    t0 = time.perf_counter()
+    coll = synth_collection(FULL_MBP)
+    t_synth = time.perf_counter() - t0
+    config = PipelineConfig(m=32, check=True)
+    n_rows, bound = api.rows_needed(coll, config.m), api.single_rows_bound(dev)
+    if n_rows < bound:
+        raise AssertionError(f"{FULL_MBP} Mbp is under the single-device bound")
+    free, _total = torch.cuda.mem_get_info(dev)
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    # check: character counts; stats: the plan the grouped tier ran
+    r = api.build(coll, config, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _read_counts()
+    if not stats or "groups.select" not in r.timings:
+        raise AssertionError(f"{FULL_MBP} Mbp did not take the grouped tier")
+    _check_grouped_counts(stats, counts, f"grouped {FULL_MBP} Mbp")
+    for name, n in counts.items():
+        rows[name]["launches_fused_build"] = rows[name]["launches"]
+        rows[name]["launches"] = n
+    bwt6 = r.bwt6
+    if not (bwt6.shape[0] == coll.bwt_len and int((bwt6 == 5).sum()) == 1
+            and bwt6[r.dollar_pos] == 5
+            and r.sharp_pos.shape[0] == coll.n_reads - 1
+            and int((bwt6 == 4).sum()) == coll.n_reads - 1):
+        raise AssertionError(f"{FULL_MBP} Mbp: the '$' or '#' counts are wrong")
+    R = stats["cap_run"] + stats["ns_cap"]
+    peak, reserved = (torch.cuda.max_memory_allocated(),
+                      torch.cuda.max_memory_reserved())
+    E = stats["chunk"] + 32 + 15
+    text_bytes = (16 + (stats["n_chunks"] - 1) * stats["chunk"] + E + (-E) % 16) // 4
+    say(json.dumps({
+        "grouped_full_mbp": FULL_MBP, "n": coll.bwt_len, "m": 32,
+        "rows_needed": n_rows, "single_rows_bound": bound, "free_bytes": free,
+        "route": "grouped", "character_counts_equal": True,
+        **_plan_of(stats), "build_s": dt,
+        "mbps": (coll.bwt_len - coll.n_reads) / 1e6 / dt, "stage_s": r.timings,
+        "unmarked_s": dt - sum(v for k_, v in r.timings.items()
+                               if not k_.startswith("groups.")),
+        "peak_bytes": peak, "peak_reserved_bytes": reserved,
+        "rows_largest_group": R, "kernels_phase_classification_rows": CLS_R,
+        "peak_reserved_bytes_per_group_row": reserved / R,
+        "peak_reserved_less_text_per_group_row": (reserved - text_bytes) / R,
+        "group_bytes_per_row_constant": grouped._GROUP_BYTES_PER_ROW,
+        "synth_s": t_synth,
+    }))
+    assert coll.bwt_len >= _FAST_N
+    t0 = time.perf_counter()
+    if not lf_verify(r, coll, max_steps=VERIFY_STEPS):
+        raise AssertionError(f"{FULL_MBP} Mbp: the LF walk fails")
+    say(json.dumps({"lf_verify_mbp": FULL_MBP, "n": coll.bwt_len,
+                    "walker": "native", "path": "sampled occ table",
+                    "steps": VERIFY_STEPS, "ok": True,
+                    "seconds": time.perf_counter() - t0}))
+    del r, bwt6, coll
+    torch.cuda.empty_cache()
+
+
+def profile_build(fn, mbp):
     """fn() once under torch.profiler: device time by kernel name and
     the device's busy share of fn's wall time."""
     import torch
@@ -505,6 +846,8 @@ def main() -> int:
     phase_kernels(dev, rows)
     phase_e2e(dev, rows)
     phase_near_bound(dev)
+    phase_verify_count(dev)
+    phase_grouped(dev, rows)
     say(f"[done] {time.perf_counter() - t_all:.1f}s")
     say(json.dumps({"kernels": list(rows.values())}))
     say(card)

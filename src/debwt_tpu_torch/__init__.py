@@ -6,14 +6,22 @@ reference, which stays unchanged beside it): the BWT of the text
 r_0 # r_1 # ... # r_{n-1} $ under lexicographic suffix order over
 A < C < G < T < # < $, written in the reference deBWT's on-disk layout.
 
-Layers so far (the single-device tier):
+Layers so far (the single-device and the grouped tier):
 
   io.fasta / io.writer   ingest with N-policy, reference-format output
+  io.native              binding of the native LF walker (csrc/lf_walk.cpp)
   special                separator-window module (host, NumPy)
   ops                    window keys, lexicographic msort, 2-bit packing
   kernels                hand-written CUDA kernels (csrc/*.cu) with their
                          plain PyTorch versions: window_keys, seg_or
   engine                 fused one-sort classification + SP + blue
+  grouped                device-resident grouped tier (key-range groups
+                         re-derived from the resident packed text)
+  oocore / bluesort      SP ranking and blue coordinates (the back half
+                         the grouped tier borrows)
+  count                  (k+1)-mer counting on the device
+  verify                 LF-walk invertibility check
+  model / transfer_n     NumPy stage model; N-removal prep tool
   pipeline / api / cli   build_bwt, tier routing, command line
 
 The package imports torch, numpy and the standard library only.
@@ -31,6 +39,8 @@ __all__ = [
     "build",
     "build_bwt",
     "BwtResult",
+    "count_kmers",
+    "read_kmer_dump",
     "__version__",
 ]
 
@@ -44,4 +54,8 @@ def __getattr__(name):
         from debwt_tpu_torch import api
 
         return api.build
+    if name in ("count_kmers", "read_kmer_dump"):
+        from debwt_tpu_torch import count
+
+        return getattr(count, name)
     raise AttributeError(name)

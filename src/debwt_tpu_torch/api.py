@@ -2,10 +2,20 @@
 
 The JAX package covers its envelope with four tiers (single-device
 fused engine, grouped device-resident, out-of-core, multi-device). The
-port has the first so far: every collection under the single-device
-row bound goes to pipeline.build_bwt, and a larger one raises
-NotImplementedError naming the tiers still to port. On a CUDA device
-the bound is also what the card's free memory holds.
+port has the first two so far:
+
+  single   fused one-sort engine (pipeline.build_bwt), every collection
+           under the single-device row bound; on a CUDA device the bound
+           is also what the card's free memory holds
+  grouped  device-resident grouped engine (grouped.build_bwt_grouped):
+           bounded device memory via key-range groups re-derived from
+           the device-resident packed text; N < grouped.MAX_N. Built
+           and verified on an H100 80GB up to 600 Mbp (PERF.md); a
+           larger N is routed here but has not been measured
+
+A collection the grouped tier cannot take (N >= MAX_N, or a single node
+key that outgrows a group) raises NotImplementedError naming the
+out-of-core tier, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,11 +33,14 @@ from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 # segment facts beside row indices in int32 scans).
 _SINGLE_ROWS = MAX_ROWS
 
-# Device bytes one sorted row costs at the peak of a build: the larger
-# of the caching allocator's reserved peaks over the rows of the 4.6 and
-# 140 Mbp, m = 32 builds (chip_smoke.py's peak_reserved_bytes_per_row,
-# 169.20 and 160.91 on an H100 80GB HBM3; see PERF.md), rounded up. At
-# this rate 2^29 rows need 91.3 GB.
+# Device bytes one sorted row costs at the peak of a build: the largest
+# of the caching allocator's reserved peaks over the rows of the 4.6,
+# 140 and 410 Mbp, m = 32 builds (chip_smoke.py's
+# peak_reserved_bytes_per_row on an H100 80GB HBM3 at 700 W; see
+# PERF.md), rounded up. The three readings it was set from are 169.20,
+# 160.91 and 160.58; since engine.segment_facts frees its temporaries
+# as it goes they read 134.00, 129.02 and 128.67, and the constant
+# keeps the older, larger value. At this rate 2^29 rows need 91.3 GB.
 _BYTES_PER_ROW = 170
 
 
@@ -55,19 +68,48 @@ def build(
     config: PipelineConfig | None = None,
     device=None,
     verbose: bool = False,
+    gcfg=None,
+    stats: dict | None = None,
 ) -> BwtResult:
-    """Construct the BWT on `device` (the CUDA card by default)."""
+    """Construct the BWT on `device` (the CUDA card by default).
+
+    gcfg (a grouped.GroupedConfig) and stats are handed to the grouped
+    tier when the route takes it, as grouped.build_bwt_grouped takes
+    them; the fused engine reads neither."""
     config = config or PipelineConfig()
     dev = resolve_device(device)
     rows, bound = rows_needed(coll, config.m), single_rows_bound(dev)
-    if rows < bound:
+
+    def _say(msg):
         if verbose:
-            print("[debwt-torch] route: single-device fused engine",
-                  file=sys.stderr)
+            print(f"[debwt-torch] route: {msg}", file=sys.stderr)
+
+    if rows < bound:
+        _say("single-device fused engine")
         return build_bwt(coll, config, device=dev)
-    raise NotImplementedError(
+
+    from debwt_tpu_torch.grouped import (
+        MAX_N, GroupOverflow, build_bwt_grouped,
+    )
+
+    over = (
         f"N={coll.bwt_len} needs {rows} sorted rows, over the single-device "
         f"bound of {bound} on {dev} (the engine's 2^29 rows, or what the "
-        "card's memory holds); the grouped, out-of-core and multi-device "
-        "tiers are not ported yet"
+        "card's memory holds)"
     )
+    if coll.bwt_len >= MAX_N:
+        raise NotImplementedError(
+            f"{over}, and N is over the grouped tier's {MAX_N}; the "
+            "out-of-core and multi-device tiers are not ported yet"
+        )
+    _say(f"grouped device-resident tier (N={coll.bwt_len}, one device)")
+    try:
+        return build_bwt_grouped(coll, config, gcfg, stats, device=dev)
+    except GroupOverflow as e:
+        # a single node key outgrew the group cap (pathological repeat
+        # mass): the JAX package falls back to the out-of-core tier's
+        # giant-bucket path here
+        raise NotImplementedError(
+            f"{over}, and the grouped tier overflowed ({e}); the "
+            "out-of-core tier is not ported yet"
+        ) from e

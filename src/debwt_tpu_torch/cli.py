@@ -3,7 +3,8 @@
 Mirrors the reference CLI (src/main.c:175-186):
 
   python -m debwt_tpu_torch.cli -o out.bwt [-k 32] [--n-policy reject|random|to-g]
-                                [--seed S] [--check] [--timings]
+                                [--seed S] [--verify] [--verify-steps S]
+                                [--check] [--timings]
                                 [--device cuda|cpu] input.fa[.gz]
 
 `-t`/`-j` are accepted for drop-in compatibility and ignored (no
@@ -37,6 +38,10 @@ def main(argv=None):
                    help="handling of N/IUPAC characters")
     p.add_argument("--seed", type=int, default=11,
                    help="seed for --n-policy random")
+    p.add_argument("--verify", action="store_true",
+                   help="LF-walk invertibility check after construction")
+    p.add_argument("--verify-steps", type=int, default=None, metavar="S",
+                   help="bound the LF walk to the last S chars (default: full)")
     p.add_argument("--check", action="store_true",
                    help="enable internal invariant checks")
     p.add_argument("--timings", action="store_true",
@@ -83,6 +88,14 @@ def main(argv=None):
 
     write_bwt(result, args.obj)
     say(f"[debwt-torch] wrote {args.obj} (+ .#, .$)")
+
+    if args.verify:
+        from debwt_tpu_torch.verify import lf_verify
+
+        ok = lf_verify(result, coll, max_steps=args.verify_steps)
+        say(f"[debwt-torch] LF invertibility: {'OK' if ok else 'FAILED'}")
+        if not ok:
+            return 2
     return 0
 
 

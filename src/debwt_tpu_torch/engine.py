@@ -61,6 +61,72 @@ def _changed(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(x[:1], dtype=torch.bool), x[1:] != x[:-1]])
 
 
+def segment_facts(newseg, is_node_row, r_pred, r_head, mo_ind):
+    """Per-node facts of the sorted rows, broadcast to every row of the
+    node's segment (shared by stage_graph and the grouped tier's
+    classification): three launches of kernel 2.
+
+    newseg[i]: row i starts a segment (row 0 must); is_node_row: main
+    rows; r_pred int32 predecessor code (7 on head rows); r_head: read
+    heads; mo_ind: the row shows a second choice char or a tail window.
+    Returns (seg_start int32, mo_row bool, mi_row bool, pred_single_row
+    uint8): the segment's first row index, multi-out and multi-in on
+    node rows, and the single predecessor base where there is one.
+
+    All per-segment facts are PRESENCE tests evaluated at the
+    segment-start rows; the six pack into one bit-word per row and ONE
+    segmented suffix-OR."""
+    R = newseg.shape[0]
+    pred_bit = (torch.ones_like(r_pred) << r_pred) & 15
+    bits = (
+        torch.where(is_node_row, pred_bit, 0)
+        | ((r_head & is_node_row).to(I32) << 4)
+        | (mo_ind.to(I32) << 5)
+    )
+    stop = torch.cat([newseg[1:], newseg.new_ones(1)])
+    orb = seg_suffix_or(bits | (stop.to(I32) << 6))
+    del pred_bit, bits, stop
+    p1 = (orb >> 1) & 1
+    p2 = (orb >> 2) & 1
+    p3 = (orb >> 3) & 1
+    in_d = (orb & 1) + p1 + p2 + p3
+    pred_sum = p1 + 2 * p2 + 3 * p3
+    mo_seg = (orb & 32) != 0
+    mi_seg = (in_d >= 2) | ((orb & 16) != 0)
+    # only meaningful when in_d == 1; clamp to its 2-bit field (the sum
+    # reaches 6 for multi-pred segments and would bleed into idx bits)
+    pred_single = torch.where(in_d == 1, pred_sum, 0)
+    facts = (pred_single << 2) | (mi_seg.to(I32) << 1) | mo_seg.to(I32)
+    del orb, p1, p2, p3, in_d, pred_sum, mo_seg, mi_seg, pred_single
+    # two prefix OR-carry scans broadcast (seg start row index, 4-bit
+    # facts) from the start row to the whole segment; start rows carry
+    # the stop bit, non-start rows carry 0 bits, so the OR-carry IS the
+    # broadcast. Row indices fit below POS_STOP for all R < 2^29.
+    idx = torch.arange(R, dtype=I32, device=newseg.device)
+    stop_w = newseg.to(I32) << 29
+    seg_start = seg_scan_or(
+        torch.where(newseg, idx, 0) | stop_w, stop_bit=POS_STOP, prefix=True
+    ) & (POS_STOP - 1)
+    del idx
+    f_row = seg_scan_or(
+        torch.where(newseg, facts, 0) | stop_w, stop_bit=POS_STOP, prefix=True
+    ) & 15
+    del facts, stop_w
+    mo_row = ((f_row & 1) != 0) & is_node_row
+    mi_row = ((f_row & 2) != 0) & is_node_row
+    pred_single_row = ((f_row >> 2) & 3).to(U8)
+    return seg_start, mo_row, mi_row, pred_single_row
+
+
+def fill_chars(is_spec, spec_char_row, mi_row, pred_single_row):
+    """The BWT char a sorted row gets before the blue fill: a special
+    row its own char, a multi-in row 0 (filled later), any other node
+    row its node's single predecessor base."""
+    return torch.where(
+        is_spec, spec_char_row, pred_single_row.masked_fill(mi_row, 0)
+    )
+
+
 def stage_graph(
     x2w,              # int32[(N+pad)/16] packed 2-bit codes (seps as T)
     sep_pos,          # int32[n_cap] separator positions (pad: >= N)
@@ -134,43 +200,10 @@ def stage_graph(
     # main rows + spec rows == n_real exactly (they partition the
     # text); non-main and bucket-padding rows sort to the tail, so valid
     # sorted rows occupy [0, n_real) and the sorted row index IS the BWT
-    # coordinate. All per-segment facts are PRESENCE tests evaluated at
-    # the segment-start rows; the six pack into one bit-word per row and
-    # ONE segmented suffix-OR.
-    pred_bit = (torch.ones_like(r_pred) << r_pred) & 15
-    bits = (
-        torch.where(is_node_row, pred_bit, 0)
-        | ((r_head & is_node_row).to(I32) << 4)
-        | (mo_ind.to(I32) << 5)
+    # coordinate.
+    seg_start, mo_row, mi_row, pred_single_row = segment_facts(
+        newseg, is_node_row, r_pred, r_head, mo_ind
     )
-    stop = torch.cat([newseg[1:], newseg.new_ones(1)])
-    orb = seg_suffix_or(bits | (stop.to(I32) << 6))
-    p1 = (orb >> 1) & 1
-    p2 = (orb >> 2) & 1
-    p3 = (orb >> 3) & 1
-    in_d = (orb & 1) + p1 + p2 + p3
-    pred_sum = p1 + 2 * p2 + 3 * p3
-    mo_seg = (orb & 32) != 0
-    mi_seg = (in_d >= 2) | ((orb & 16) != 0)
-    # only meaningful when in_d == 1; clamp to its 2-bit field (the sum
-    # reaches 6 for multi-pred segments and would bleed into idx bits)
-    pred_single = torch.where(in_d == 1, pred_sum, 0)
-    # two prefix OR-carry scans broadcast (seg start row index, 4-bit
-    # facts) from the start row to the whole segment; start rows carry
-    # the stop bit, non-start rows carry 0 bits, so the OR-carry IS the
-    # broadcast. Row indices fit below POS_STOP for all R < 2^29.
-    idx = torch.arange(R, dtype=I32, device=dev)
-    facts = (pred_single << 2) | (mi_seg.to(I32) << 1) | mo_seg.to(I32)
-    stop_w = newseg.to(I32) << 29
-    seg_start = seg_scan_or(
-        torch.where(newseg, idx, 0) | stop_w, stop_bit=POS_STOP, prefix=True
-    ) & (POS_STOP - 1)
-    f_row = seg_scan_or(
-        torch.where(newseg, facts, 0) | stop_w, stop_bit=POS_STOP, prefix=True
-    ) & 15
-    mo_row = ((f_row & 1) != 0) & is_node_row
-    mi_row = ((f_row & 2) != 0) & is_node_row
-    pred_single_row = ((f_row >> 2) & 3).to(U8)
     # SP event keys: pos<<3 | char6, one per multi-out row. The SP char
     # is the base k ahead (src/generateSP.c:626-651) — the m-window's
     # last char (key & 3), or '#'/'$' for tail windows. Positions are
@@ -182,11 +215,7 @@ def stage_graph(
         r_tailw, torch.where(is_dollar_row, 5, 4).to(I64), choice
     )
     ev_key = torch.where(mo_row, (r_pos.to(I64) << 3) | sp6_row, SENT)
-    fill_row = torch.where(
-        is_spec1,
-        spec_char_row,
-        pred_single_row.masked_fill(mi_row, 0),
-    )
+    fill_row = fill_chars(is_spec1, spec_char_row, mi_row, pred_single_row)
     L = mo_row.sum() + (spec_branch_pos < n_real).sum()
     B = mi_row.sum()
 

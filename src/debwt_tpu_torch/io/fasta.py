@@ -64,11 +64,30 @@ def read_collection(
     """
     from debwt_tpu_torch.types import SequenceCollection
 
+    codes, lengths, _ = _stream_reads(path, n_policy, seed, chunk_bytes, False)
+    return SequenceCollection.from_concat(codes, lengths)
+
+
+def read_reads(
+    path: str,
+    n_policy: NPolicy | str = NPolicy.REJECT,
+    seed: int = 0,
+    chunk_bytes: int = 1 << 26,
+):
+    """The same streaming parse, for callers that need the records
+    themselves: (codes uint8[total], lengths int64[n], names list[str]).
+    Read j is codes[lengths[:j].sum():][:lengths[j]]; a record without a
+    name is called read<j>. No read-length requirement is enforced."""
+    return _stream_reads(path, n_policy, seed, chunk_bytes, True)
+
+
+def _stream_reads(path, n_policy, seed, chunk_bytes, with_names):
     if isinstance(n_policy, str):
         n_policy = NPolicy(n_policy)
     opener = gzip.open if str(path).endswith(".gz") else open
     chunks: List[np.ndarray] = []    # per-region code arrays
     bound_parts: List[np.ndarray] = []  # read-start offsets, global
+    names: List[str] = []
     base = 0                          # total kept (code) bytes so far
     lines_seen = 0                    # FASTQ phase carry
     region_i = 0
@@ -84,11 +103,17 @@ def read_collection(
         if fmt == "fasta":
             is_rec = buf[starts] == ord(">")
             is_body = ~is_rec
+            is_name = is_rec
         else:
             phase = (lines_seen + np.arange(starts.shape[0])) % 4
             is_rec = phase == 1       # the sequence line IS the record
             is_body = is_rec
+            is_name = phase == 0
             lines_seen += starts.shape[0]
+        if with_names:
+            for s0, e0 in zip(starts[is_name], ends[is_name]):
+                tok = region[s0 + 1 : e0].split()
+                names.append(tok[0].decode() if tok else f"read{len(names)}")
         keep = _span_mask(buf, starts[is_body], ends[is_body])
         # kept length per line (line body minus CRs) -> record starts
         # by a LINE-level cumsum; no per-byte int64 scan
@@ -139,7 +164,7 @@ def read_collection(
     if starts_all.size == 0:
         raise ValueError(f"no records parsed from {path}")
     lengths = np.diff(np.concatenate([starts_all, [codes.shape[0]]]))
-    return SequenceCollection.from_concat(codes, lengths)
+    return codes, lengths, names
 
 
 def _line_table(buf: np.ndarray):

@@ -1,12 +1,17 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host helpers.
 
 Each source `csrc/<name>.cu` is compiled by nvcc for sm_90a into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) and loaded with ctypes. Libraries are built at first use
 into `csrc/build/` (git-ignored), under a name that hashes the source
-and the flags, so an edited source is rebuilt; nvcc's output is kept
-beside each library as `.log`. `build_all` starts one
-nvcc per source at once and waits for all of them.
+and the flags, so an edited source is rebuilt; the compiler's output is
+kept beside each library as `.log`. `build_all` starts one compiler per
+source at once and waits for all of them.
+
+A name in HOST_SOURCES is a host helper, `csrc/<name>.cpp` (the LF
+walker of verify.py): the same scheme with the host C++ compiler, so it
+also builds where there is no nvcc. A source that does not build raises;
+nothing steps in for it.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without nvcc.
@@ -17,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 from pathlib import Path
@@ -24,10 +30,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("window_keys", "seg_or")
+HOST_SOURCES = ("lf_walk",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -43,21 +51,36 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _cxx() -> str:
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError(
+            "no host C++ compiler found: set CXX or put g++ on PATH"
+        )
+    return cxx
+
+
+def _source(name: str) -> Path:
+    return CSRC / f"{name}.{'cpp' if name in HOST_SOURCES else 'cu'}"
+
+
+def _flags(name: str) -> tuple:
+    return CXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+
+
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        _source(name).read_bytes() + " ".join(_flags(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every library in `names` that is not built yet, all at
-    once. Returns nvcc's output (ptxas register and shared-memory
-    report) per name; for a library already built, the output saved
-    beside it when it was built. Raises on the first failed build."""
+    once. Returns the compiler's output (for nvcc, ptxas's register and
+    shared-memory report) per name; for a library already built, the
+    output saved beside it when it was built. Raises if a build failed."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = None
     running = {}
     logs = {}
     for name in names:
@@ -66,9 +89,9 @@ def build_all(names=SOURCES) -> dict[str, str]:
             log = out.with_suffix(".log")
             logs[name] = log.read_text() if log.exists() else ""
             continue
-        nvcc = nvcc or _nvcc()
+        compiler = _cxx() if name in HOST_SOURCES else _nvcc()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [compiler, *_flags(name), "-o", str(tmp), str(_source(name))]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -85,7 +108,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
         os.replace(tmp, out)      # atomic: concurrent builders agree
     if failed:
         raise RuntimeError(
-            "nvcc failed for "
+            "the build failed for "
             + ", ".join(failed)
             + ":\n"
             + "\n".join(logs[n] for n in failed)
@@ -94,7 +117,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of csrc/<name>.cu, built on first use."""
+    """The ctypes handle of csrc/<name>.cu (or .cpp), built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -176,8 +176,8 @@ def build_bwt(
     if rows_needed(coll, m) >= MAX_ROWS:
         raise NotImplementedError(
             "single-device engine: text must be < ~512 Mbp (R < 2^29 "
-            "rows); the grouped, out-of-core and multi-device tiers are "
-            "not ported yet"
+            "rows); api.build routes a larger collection to the grouped "
+            "tier"
         )
 
     # ---- host: special module (tiny, irregular) ----

@@ -12,9 +12,10 @@ import torch
 
 from debwt_tpu.cli import main as jax_main
 from debwt_tpu.io import read_collection as jax_read_collection
+from debwt_tpu.io import read_fasta as jax_read_fasta
 from debwt_tpu_torch.cli import main as torch_main
 from debwt_tpu_torch.golden import golden_bwt
-from debwt_tpu_torch.io import read_bwt, read_collection, write_bwt
+from debwt_tpu_torch.io import read_bwt, read_collection, read_reads, write_bwt
 from debwt_tpu_torch.types import SequenceCollection
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -65,6 +66,50 @@ def test_cli_timings_and_unwritable_output(tmp_path, rng, capsys):
                        "cpu", str(path)]) == 1
 
 
+def test_cli_verify_matches_jax_cli(tmp_path, rng, capsys):
+    """--verify: the same three files as the JAX CLI's --verify, the
+    invertibility line with the port's prefix, exit code 0; bounded by
+    --verify-steps likewise."""
+    path = tmp_path / "in.fa"
+    _write_fasta(path, _reads(rng, 6))
+    assert jax_main(["-o", str(tmp_path / "jax.bwt"), "--verify", str(path)]) == 0
+    assert "[debwt-tpu] LF invertibility: OK" in capsys.readouterr().err
+    assert torch_main(["-o", str(tmp_path / "port.bwt"), "--device", "cpu",
+                       "--verify", str(path)]) == 0
+    assert "[debwt-torch] LF invertibility: OK" in capsys.readouterr().err
+    assert _outputs(tmp_path / "port.bwt") == _outputs(tmp_path / "jax.bwt")
+    assert torch_main(["-o", str(tmp_path / "port2.bwt"), "--device", "cpu",
+                       "--verify", "--verify-steps", "40", str(path)]) == 0
+    assert "LF invertibility: OK" in capsys.readouterr().err
+    assert torch_main(["-o", str(tmp_path / "port3.bwt"), "--device", "cpu",
+                       str(path)]) == 0
+    assert "LF invertibility" not in capsys.readouterr().err
+
+
+def test_cli_verify_exits_2_on_a_tampered_result(tmp_path, rng, capsys, monkeypatch):
+    import dataclasses
+
+    from debwt_tpu_torch import api
+
+    path = tmp_path / "in.fa"
+    _write_fasta(path, _reads(rng, 4))
+    real = api.build
+
+    def tampered(coll, config, device=None, verbose=False):
+        r = real(coll, config, device=device, verbose=verbose)
+        bad = r.bwt6.copy()
+        bad[int(np.nonzero(bad < 4)[0][9])] ^= 1
+        return dataclasses.replace(r, packed_words=None, _bwt6=bad)
+
+    monkeypatch.setattr(api, "build", tampered)
+    assert torch_main(["-o", str(tmp_path / "o.bwt"), "--device", "cpu",
+                       "--verify", str(path)]) == 2
+    assert "[debwt-torch] LF invertibility: FAILED" in capsys.readouterr().err
+    # without --verify the same result goes unnoticed
+    assert torch_main(["-o", str(tmp_path / "o.bwt"), "--device", "cpu",
+                       str(path)]) == 0
+
+
 def test_cli_default_device_needs_a_card(tmp_path, rng, monkeypatch):
     path = tmp_path / "in.fa"
     _write_fasta(path, _reads(rng, 2))
@@ -94,6 +139,32 @@ def test_read_collection_matches_jax(tmp_path, rng, fmt, policy):
     np.testing.assert_array_equal(got.sep, want.sep)
 
 
+@pytest.mark.parametrize("fmt", ["fasta", "fastq"])
+@pytest.mark.parametrize("chunk_bytes", [1 << 26, 61])
+def test_read_reads_matches_jax_read_fasta(tmp_path, rng, fmt, chunk_bytes):
+    """The streaming parser's records and names equal the JAX package's
+    whole-file parser's, short reads and nameless records included, also
+    when a record spans several regions."""
+    reads = _reads(rng, 4) + ["ACGTTGCA"]
+    path = tmp_path / f"in.{fmt}"
+    with open(path, "w") as f:
+        for i, r in enumerate(reads):
+            name = "" if i == 2 else f"r{i} some text"
+            if fmt == "fastq":
+                f.write(f"@{name}\n{r}\n+\n{'I' * len(r)}\n")
+            else:
+                f.write(f">{name}\n" + "".join(
+                    r[j : j + 33] + "\n" for j in range(0, len(r), 33)))
+    codes, lengths, names = read_reads(str(path), chunk_bytes=chunk_bytes)
+    want, want_names = jax_read_fasta(str(path))
+    # the JAX package's own parsers disagree on what to call a nameless
+    # record; the port calls it read<j>
+    assert names[2] == "read2"
+    assert names[:2] + names[3:] == want_names[:2] + want_names[3:]
+    assert lengths.tolist() == [len(r) for r in want] and lengths[-1] == 8
+    np.testing.assert_array_equal(codes, np.concatenate(want))
+
+
 def test_writer_roundtrip(tmp_path, rng):
     coll = SequenceCollection.from_reads(_reads(rng, 4))
     g = golden_bwt(coll)
@@ -118,7 +189,11 @@ def test_import_loads_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'debwt_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 25, names\n"
+        "new = ['grouped', 'oocore', 'bluesort', 'verify', 'count', 'model',\n"
+        "       'transfer_n', 'io.native']\n"
+        "assert all('debwt_tpu_torch.' + n in names for n in new), names\n"
+        "from debwt_tpu_torch import count_kmers, read_kmer_dump\n"
         "print(len(names))\n"
     )
     root = os.path.join(SRC, "..")

@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from debwt_tpu_torch import api, count_kmers
 from debwt_tpu_torch.golden import golden_bwt
+from debwt_tpu_torch.grouped import GroupedConfig, build_bwt_grouped
 from debwt_tpu_torch.kernels import seg_or
 from debwt_tpu_torch.kernels import window_keys as wk
 from debwt_tpu_torch.ops import pack_2bit_words
 from debwt_tpu_torch.pipeline import build_bwt
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
+from debwt_tpu_torch.verify import lf_verify
 
 pytestmark = pytest.mark.gpu
 
@@ -155,3 +158,77 @@ def test_build_bwt_on_card_matches_golden(cuda, m):
     assert r.packed() == g.packed()
     np.testing.assert_array_equal(r.sharp_pos, g.sharp_pos)
     assert r.dollar_pos == g.dollar_pos
+
+
+def _repeat_reads(seed, n_reads=12):
+    rng = np.random.default_rng(seed)
+    frags = ["".join(rng.choice(list("ACGT"), size=30)) for _ in range(4)]
+    return ["".join(rng.choice(frags) for _ in range(5)) for _ in range(n_reads)]
+
+
+@pytest.mark.parametrize("m,cap,chunk", [(12, 512, 256), (24, 1024, 512),
+                                         (32, 512, 256), (32, 100_000, 4096)])
+def test_grouped_on_card_matches_golden(cuda, m, cap, chunk):
+    """The grouped tier on the card: golden bytes, and both kernels
+    launched as the plan says (once a chunk of every group, and three
+    scans a group)."""
+    coll = SequenceCollection.from_reads(_repeat_reads(m + cap))
+    stats = {}
+    wk.window_keys.launches = seg_or.seg_scan_or.launches = 0
+    r = build_bwt_grouped(coll, PipelineConfig(m=m, check=True),
+                          GroupedConfig(cap=cap, chunk=chunk), stats=stats)
+    G, n_chunks = stats["n_groups"], stats["n_chunks"]
+    assert stats["attempts"] == 1 and (G >= 2) == (cap < 100_000)
+    assert wk.window_keys.launches == G * n_chunks
+    assert seg_or.seg_scan_or.launches == G * n_chunks + 3 * G
+    assert stats["launches"] == {"window_keys": G * n_chunks,
+                                 "seg_scan_or": G * n_chunks + 3 * G}
+    g = golden_bwt(coll)
+    assert r.packed() == g.packed()
+    np.testing.assert_array_equal(r.sharp_pos, g.sharp_pos)
+    assert r.dollar_pos == g.dollar_pos
+
+
+def test_api_routes_to_grouped_on_card(cuda, monkeypatch):
+    coll = SequenceCollection.from_reads(_repeat_reads(7))
+    monkeypatch.setattr(api, "_SINGLE_ROWS", 64)
+    stats = {}
+    r = api.build(coll, PipelineConfig(m=32, check=True),
+                  gcfg=GroupedConfig(cap=512), stats=stats)
+    assert "groups.select" in r.timings and stats["cap"] == 512
+    assert r.packed() == golden_bwt(coll).packed()
+
+
+@pytest.mark.parametrize("fast_n", [1 << 27, 1], ids=["full_lf", "sampled_occ"])
+def test_lf_verify_on_card_result(cuda, monkeypatch, fast_n):
+    import dataclasses
+
+    from debwt_tpu_torch import verify
+
+    monkeypatch.setattr(verify, "_FAST_N", fast_n)
+    coll = SequenceCollection.from_reads(_repeat_reads(3))
+    r = build_bwt(coll, PipelineConfig(m=32))
+    assert lf_verify(r, coll)
+    bad = r.bwt6.copy()
+    bad[int(np.nonzero(bad < 4)[0][5])] ^= 1
+    assert not lf_verify(dataclasses.replace(r, packed_words=None, _bwt6=bad), coll)
+
+
+@pytest.mark.parametrize("m", [12, 20, 32])
+def test_count_kmers_on_card_matches_host_count(cuda, m):
+    # T runs: at m = 32 keys with the top bit set, in unsigned order
+    reads = _repeat_reads(m) + ["T" * 80 + "ACGT" * 10]
+    coll = SequenceCollection.from_reads(reads)
+    want = {}
+    for r in reads:
+        for i in range(len(r) - m + 1):
+            v = 0
+            for ch in r[i : i + m]:
+                v = (v << 2) | "ACGT".index(ch)
+            want[v] = want.get(v, 0) + 1
+    wk.window_keys.launches = 0
+    kmers, counts = count_kmers(coll, m)
+    assert wk.window_keys.launches == 1
+    assert kmers.dtype == np.uint64
+    assert [int(v) for v in kmers] == sorted(want)
+    assert [int(c) for c in counts] == [want[v] for v in sorted(want)]

@@ -121,11 +121,20 @@ def test_default_device_needs_a_card(monkeypatch):
 
 
 def test_api_routes_single_and_refuses_larger(monkeypatch):
+    """Under the bound: the fused engine. Over it: the grouped tier,
+    the same bytes. Over the grouped tier's position bound: refused,
+    naming the tier that is not ported."""
+    from debwt_tpu_torch import grouped
+
     rng = np.random.default_rng(1)
     coll = SequenceCollection.from_reads([_rand(rng, 80) for _ in range(3)])
+    g = golden_bwt(JaxCollection(x2=coll.x2, sep=coll.sep))
     r = api.build(coll, device="cpu")
-    assert r.packed() == golden_bwt(JaxCollection(x2=coll.x2, sep=coll.sep)).packed()
+    assert r.packed() == g.packed() and "stage_graph (+h2d, sync)" in r.timings
     monkeypatch.setattr(api, "_SINGLE_ROWS", 64)
+    r = api.build(coll, device="cpu")
+    assert r.packed() == g.packed() and "groups.select" in r.timings
+    monkeypatch.setattr(grouped, "MAX_N", 100)
     with pytest.raises(NotImplementedError, match="out-of-core"):
         api.build(coll, device="cpu")
 
@@ -139,8 +148,11 @@ def test_api_routes_single_and_refuses_larger(monkeypatch):
 )
 def test_api_bounds_single_tier_by_card_memory(monkeypatch, free_memory, fits):
     """On a CUDA device a collection whose rows exceed what the card's
-    memory holds raises NotImplementedError before anything is allocated
-    (not an out-of-memory error from the engine)."""
+    memory holds goes to the grouped tier before anything is allocated
+    (not into an out-of-memory error from the fused engine), and is
+    refused with NotImplementedError where that tier cannot take it."""
+    from debwt_tpu_torch import grouped
+
     coll = SequenceCollection.from_reads(["ACGT" * 10, "TTGCA" * 7])
     assert api.rows_needed(coll, 12) == 112   # _bucket(77) = 80, _pow2(22) = 32
     cuda = torch.device("cuda", 0)
@@ -150,13 +162,18 @@ def test_api_bounds_single_tier_by_card_memory(monkeypatch, free_memory, fits):
     monkeypatch.setattr(
         api, "build_bwt", lambda coll, config, device: built.append(device)
     )
-    if fits:
-        api.build(coll, PipelineConfig(m=12))
-        assert built == [cuda]
-    else:
+    went = []
+    monkeypatch.setattr(
+        grouped, "build_bwt_grouped",
+        lambda coll, config, gcfg, stats, device: went.append(device),
+    )
+    api.build(coll, PipelineConfig(m=12))
+    assert (built, went) == (([cuda], []) if fits else ([], [cuda]))
+    if not fits:
+        monkeypatch.setattr(grouped, "MAX_N", coll.bwt_len)
         with pytest.raises(NotImplementedError, match="card's memory"):
             api.build(coll, PipelineConfig(m=12))
-        assert built == []
+        assert (built, went) == ([], [cuda])
 
 
 def test_single_rows_bound_is_the_smaller_of_engine_and_memory(monkeypatch):
