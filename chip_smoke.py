@@ -48,6 +48,20 @@ Phases, in order; any failure ends the script with a non-zero code:
            the default cap; it must take the grouped tier, pass the
            character-count check, hold one '$' and n_reads - 1 '#', and
            pass a bounded LF walk on the sampled-occ path
+  ooc      the out-of-core tier (oocore.build_bwt_ooc), called directly:
+           the grouped phase's 600 Mbp collection with the default knobs
+           (9 chunks of 2^26, 64 buckets in host DRAM) must give the
+           grouped build's hashes, one '$' and n_reads - 1 '#'; 140 Mbp
+           spilled to a temporary directory with checkpoints, interrupted
+           at bucket 32 of 64 and resumed in-process, must give the
+           reference hashes with no kernel-1 launch on the resume and no
+           bucket file left; launches against the plan (kernel 1 once a
+           chunk, kernel 2 three times a device classification); the
+           plan, stage times, Mbp/s, peak device bytes, the host's peak
+           RSS and the peak spill bytes; then both kernels against their
+           plain versions and timed at this tier's shapes (window_keys on
+           one chunk's packed words at w = 31 and 11, the classification
+           scans at the largest bucket's rows)
 
 The lines before the last are the `kernels` JSON object and the card's
 name and power limit; the last is {"ok": true, "device": {...}}.
@@ -82,6 +96,8 @@ GROUPED_MBP = 140.0         # against the reference hashes, in >= 4 groups
 GROUPED_CAP = 48_000_000
 GROUPED_CHUNK = 1 << 25
 FULL_MBP = 600.0            # rows_needed > 2^29: over any card's bound
+OOC_CHUNK = 1 << 26         # OocConfig().chunk
+OOC_SPILL_MBP = 140.0       # spilled, interrupted and resumed
 VERIFY_STEPS = 1 << 22
 
 
@@ -147,7 +163,7 @@ def phase_build():
     t0 = time.perf_counter()
     logs = _build.build_all(_build.SOURCES + _build.HOST_SOURCES)
     say(f"[build] {len(_build.SOURCES)} kernel libraries and "
-        f"{len(_build.HOST_SOURCES)} host helper in "
+        f"{len(_build.HOST_SOURCES)} host helpers in "
         f"{time.perf_counter() - t0:.1f}s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name, log in logs.items():
         for line in log.strip().splitlines():
@@ -347,6 +363,48 @@ def phase_kernels(dev, rows: dict):
     torch.cuda.empty_cache()
 
 
+def _scan_shape(so: Parity, words, stop: int, prefix: bool, shape: str) -> dict:
+    """seg_scan_or on `words` checked against its plain version, then
+    timed beside the bound and the plain version's time."""
+    from debwt_tpu_torch.kernels import seg_or
+
+    got = seg_or.seg_scan_or(words, stop_bit=stop, prefix=prefix)
+    so.check(got, seg_or.seg_scan_or_plain(words, stop, prefix), shape)
+    del got
+    R = words.shape[0]
+    b_ms, b_by = bound_ms(8 * R, 3 * R)
+    return dict(
+        shape=shape,
+        ms=cuda_ms(lambda: seg_or.seg_scan_or(words, stop_bit=stop,
+                                              prefix=prefix), reps=10),
+        plain_ms=cuda_ms(lambda: seg_or.seg_scan_or_plain(words, stop, prefix),
+                         reps=2, warm=1),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def _classification_scans(dev, gen, so: Parity, R: int, what: str) -> list:
+    """The scans of one classification of R sorted rows
+    (engine.segment_facts): the suffix OR of the presence bits under
+    stop bit 2^6, and a prefix broadcast of row indices under 2^29 (the
+    facts' broadcast has the same shape and stop)."""
+    import torch
+
+    POS = 1 << 29
+    newseg = torch.rand(R, generator=gen, device=dev) < 0.3
+    newseg[0] = True
+    bits = torch.randint(0, 64, (R,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    stop = torch.cat([newseg[1:], newseg.new_ones(1)])
+    out = [_scan_shape(so, bits | (stop.to(torch.int32) << 6), 1 << 6, False,
+                       f"{what} R={R} suffix 2^6")]
+    del bits, stop
+    idx = torch.arange(R, dtype=torch.int32, device=dev)
+    out.append(_scan_shape(
+        so, torch.where(newseg, idx, 0) | (newseg.to(torch.int32) << 29), POS,
+        True, f"{what} R={R} prefix 2^29"))
+    return out
+
+
 def _grouped_scan_shapes(dev, gen, so: Parity) -> list:
     """seg_scan_or at the grouped tier's shapes, checked and timed: the
     selection's separator scan (R = C + k + 2, not a multiple of 4:
@@ -355,44 +413,17 @@ def _grouped_scan_shapes(dev, gen, so: Parity) -> list:
     scans of a classification (R = cap_run + ns_cap)."""
     import torch
 
-    from debwt_tpu_torch.kernels import seg_or
-
     POS = 1 << 29
     out = []
-
-    def run(words, stop, prefix, shape):
-        got = seg_or.seg_scan_or(words, stop_bit=stop, prefix=prefix)
-        so.check(got, seg_or.seg_scan_or_plain(words, stop, prefix), shape)
-        del got
-        R = words.shape[0]
-        b_ms, b_by = bound_ms(8 * R, 3 * R)
-        out.append(dict(
-            shape=shape,
-            ms=cuda_ms(lambda: seg_or.seg_scan_or(words, stop_bit=stop,
-                                                  prefix=prefix), reps=10),
-            plain_ms=cuda_ms(lambda: seg_or.seg_scan_or_plain(words, stop, prefix),
-                             reps=2, warm=1),
-            bound_ms=b_ms, bound_by=b_by))
-
     idx = torch.arange(SEL_R, dtype=torch.int32, device=dev)
     for every in (300, 30_000, 3_000_000):
         is_sep = torch.rand(SEL_R, generator=gen, device=dev) < 1.0 / every
         is_sep[-1] = True
-        run(torch.where(is_sep, idx | POS, 0), POS, False,
-            f"selection R={SEL_R} suffix 2^29, a separator every {every} rows")
+        out.append(_scan_shape(
+            so, torch.where(is_sep, idx | POS, 0), POS, False,
+            f"selection R={SEL_R} suffix 2^29, a separator every {every} rows"))
     del idx, is_sep
-    newseg = torch.rand(CLS_R, generator=gen, device=dev) < 0.3
-    newseg[0] = True
-    bits = torch.randint(0, 64, (CLS_R,), generator=gen, device=dev,
-                         dtype=torch.int32)
-    stop = torch.cat([newseg[1:], newseg.new_ones(1)])
-    run(bits | (stop.to(torch.int32) << 6), 1 << 6, False,
-        f"classification R={CLS_R} suffix 2^6")
-    del bits, stop
-    idx = torch.arange(CLS_R, dtype=torch.int32, device=dev)
-    run(torch.where(newseg, idx, 0) | (newseg.to(torch.int32) << 29), POS, True,
-        f"classification R={CLS_R} prefix 2^29")
-    return out
+    return out + _classification_scans(dev, gen, so, CLS_R, "classification")
 
 
 def _counters():
@@ -664,7 +695,8 @@ def phase_verify_count(dev):
 def phase_grouped(dev, rows: dict):
     """The grouped tier: 140 Mbp in at least 4 groups and 4 chunks
     against the reference hashes, a profile of one such build, then
-    600 Mbp at full width through api.build."""
+    600 Mbp at full width through api.build. Returns the 600 Mbp
+    collection and its hashes, which the ooc phase builds again."""
     import torch
 
     from debwt_tpu_torch import api, grouped
@@ -785,7 +817,239 @@ def phase_grouped(dev, rows: dict):
                     "walker": "native", "path": "sampled occ table",
                     "steps": VERIFY_STEPS, "ok": True,
                     "seconds": time.perf_counter() - t0}))
+    hashes = _hashes(r)
+    del r, bwt6
+    torch.cuda.empty_cache()
+    return coll, hashes
+
+
+class RssPeak:
+    """The peak resident set of this process while the `with` block
+    runs, sampled from /proc/self/statm every 50 ms by a thread (not
+    every kernel's /proc/self/status has the high-water mark VmHWM, nor
+    lets it be reset). `bytes` stays None where statm cannot be read."""
+
+    def __init__(self):
+        import threading
+
+        self.bytes = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def _now():
+        import os
+
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while True:
+            try:
+                self.bytes = max(self.bytes or 0, self._now())
+            except (OSError, ValueError, IndexError):
+                return
+            if self._stop.wait(0.05):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+class _Interrupted(Exception):
+    pass
+
+
+def _check_ooc_counts(stats: dict, counts: dict, what: str, resumed=False):
+    """Launches against the plan: kernel 1 once a chunk (none on a
+    resume past pass A), kernel 2 three times a device classification."""
+    want = {"window_keys": 0 if resumed else stats["n_chunks"],
+            "seg_scan_or": 3 * stats["classifications"]}
+    if counts != want or stats["launches"] != want or want["seg_scan_or"] < 3:
+        raise AssertionError(
+            f"{what}: launches {counts} (tally {stats['launches']}), plan {want}"
+        )
+
+
+def _ooc_plan(stats: dict) -> dict:
+    keys = ("bucket_cap", "chunk", "n_chunks", "n_buckets", "max_bucket_rows",
+            "classifications", "oversized_buckets", "sp_len", "n_blue",
+            "launches")
+    return {k: stats[k] for k in keys}
+
+
+def phase_ooc(dev, rows: dict, coll, hashes):
+    """The out-of-core tier (oocore.build_bwt_ooc), called directly:
+    the grouped phase's 600 Mbp collection with the default knobs (9
+    chunks, 64 buckets in host DRAM) against the grouped tier's hashes;
+    then 140 Mbp spilled to disk with checkpoints, interrupted in pass B
+    and resumed, against the reference hashes; then both kernels at the
+    shapes this tier gives them."""
+    import os
+    import resource
+    import tempfile
+
+    import torch
+
+    from debwt_tpu_torch import oocore
+    from debwt_tpu_torch.synth import synth_collection
+    from debwt_tpu_torch.types import PipelineConfig
+
+    config = PipelineConfig(m=32)
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        r = oocore.build_bwt_ooc(coll, config, oocore.OocConfig(), stats,
+                                 device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = _read_counts()
+    _check_ooc_counts(stats, counts, f"ooc {FULL_MBP} Mbp")
+    # 600 Mbp: 9 chunks of 2^26
+    if (stats["n_chunks"], stats["n_buckets"]) != (-(-coll.bwt_len // OOC_CHUNK), 64):
+        raise AssertionError(f"ooc {FULL_MBP} Mbp: plan {_ooc_plan(stats)}")
+    if _hashes(r) != hashes:
+        raise AssertionError(f"ooc {FULL_MBP} Mbp: differs from the grouped tier")
+    bwt6 = r.bwt6
+    if not (int((bwt6 == 5).sum()) == 1
+            and int((bwt6 == 4).sum()) == coll.n_reads - 1 == r.sharp_pos.shape[0]):
+        raise AssertionError(f"ooc {FULL_MBP} Mbp: the '$' or '#' counts are wrong")
+    for name, n in counts.items():
+        rows[name]["launches_ooc"] = n
+    say(json.dumps({
+        "ooc_mbp": FULL_MBP, "n": coll.bwt_len, "m": 32,
+        "hashes_equal_grouped": True, **_ooc_plan(stats), "build_s": dt,
+        "mbps": (coll.bwt_len - coll.n_reads) / 1e6 / dt,
+        "stage_s": stats["stage_s"],
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+        "host_peak_rss_bytes": rss.bytes,
+        "ru_maxrss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+    }))
+    R_bucket = stats["max_bucket_rows"]
     del r, bwt6, coll
+    torch.cuda.empty_cache()
+
+    # ---- 140 Mbp through disk spill with checkpoints, interrupted ----
+    cache = json.loads((ROOT / ".bench_cache.json").read_text())
+    ref = cache[f"ref_mbp{OOC_SPILL_MBP}"]
+    coll = synth_collection(OOC_SPILL_MBP)
+    real = oocore._classify_bucket
+    seen = {"calls": 0, "spill_peak": 0, "spill_peak_apparent": 0}
+
+    with tempfile.TemporaryDirectory(prefix="debwt_ooc_") as d:
+        ooc = oocore.OocConfig(spill_dir=d, checkpoint=True)
+        crash_at = ooc.n_buckets // 2 + 1
+
+        def spy(*a):
+            seen["calls"] += 1
+            sts = [os.stat(os.path.join(d, f)) for f in os.listdir(d)]
+            seen["spill_peak"] = max(seen["spill_peak"],
+                                     sum(st.st_blocks * 512 for st in sts))
+            seen["spill_peak_apparent"] = max(seen["spill_peak_apparent"],
+                                              sum(st.st_size for st in sts))
+            if seen["calls"] == crash_at:
+                raise _Interrupted(f"interrupted at classification {crash_at}")
+            return real(*a)
+
+        oocore._classify_bucket = spy
+        try:
+            t0 = time.perf_counter()
+            try:
+                oocore.build_bwt_ooc(coll, config, ooc, device=dev)
+                raise AssertionError("the spill build was not interrupted")
+            except _Interrupted:
+                t_first = time.perf_counter() - t0
+            with open(os.path.join(d, "manifest.json")) as f:
+                manifest = json.load(f)
+            if (manifest["stage"], manifest["next_bucket"]) != ("B", crash_at - 1):
+                raise AssertionError(f"ooc spill: manifest {manifest} at the interrupt")
+            stats = {}
+            _reset_counts()
+            t0 = time.perf_counter()
+            r = oocore.build_bwt_ooc(coll, config, ooc, stats, device=dev)
+            torch.cuda.synchronize()
+            t_resume = time.perf_counter() - t0
+            counts = _read_counts()
+            left = sorted(f for f in os.listdir(d) if f.startswith("bk"))
+        finally:
+            oocore._classify_bucket = real
+        _check_ooc_counts(stats, counts, f"ooc {OOC_SPILL_MBP} Mbp resume",
+                          resumed=True)
+        if _hashes(r) != (ref["obj_sha"], ref["sharp_sha"], ref["dollar"]):
+            raise AssertionError(
+                f"ooc {OOC_SPILL_MBP} Mbp resumed: differs from the reference hashes"
+            )
+        if left:
+            raise AssertionError(f"ooc spill: bucket files left: {left[:5]}")
+        if stats["classifications"] != seen["calls"] - crash_at:
+            raise AssertionError("ooc spill: the resume redid finished buckets")
+        for name, n in counts.items():
+            rows[name]["launches_ooc_resume"] = n
+        say(json.dumps({
+            "ooc_spill_mbp": OOC_SPILL_MBP, "n": coll.bwt_len, "m": 32,
+            "hashes_equal_reference": True, "interrupted_at_bucket": crash_at - 1,
+            **_ooc_plan(stats), "first_run_s": t_first, "resume_s": t_resume,
+            "stage_s_resume": stats["stage_s"],
+            "spill_peak_bytes": seen["spill_peak"],
+            "spill_peak_apparent_bytes": seen["spill_peak_apparent"],
+            "bucket_files_left": 0,
+        }))
+        del r
+    del coll
+    torch.cuda.empty_cache()
+    _ooc_kernel_shapes(dev, rows, R_bucket)
+
+
+def _ooc_kernel_shapes(dev, rows: dict, R_bucket: int):
+    """Both kernels at the out-of-core tier's shapes, checked against
+    their plain versions and timed: window_keys' packed entry on one
+    chunk's freshly packed words at w = 31 (m = 32) and w = 11 (m = 12),
+    and the classification scans at the largest bucket's rows."""
+    import numpy as np
+    import torch
+
+    from debwt_tpu_torch import ops
+    from debwt_tpu_torch.kernels.window_keys import (
+        window_keys_packed, window_keys_packed_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    wk, so = Parity("window_keys"), Parity("seg_scan_or")
+    C = OOC_CHUNK
+    shapes = []
+    for w in (31, 11):
+        buf = np.random.default_rng(w).integers(0, 4, C + w, dtype=np.uint8)
+        kw = torch.from_numpy(ops.pack_2bit_words_host(buf).view("int32")).to(dev)
+        what = f"packed words of one chunk, n_out {C}, w {w}"
+        wk.check(window_keys_packed(kw, w, C), window_keys_packed_plain(kw, w, C),
+                 what)
+        b_ms, b_by = bound_ms((C + w - 1) / 4 + 8 * C, 3 * C)
+        shapes.append(dict(
+            shape=what, ms=cuda_ms(lambda: window_keys_packed(kw, w, C), reps=20),
+            plain_ms=cuda_ms(lambda: window_keys_packed_plain(kw, w, C),
+                             reps=3, warm=1),
+            bound_ms=b_ms, bound_by=b_by))
+        del kw
+    rows["window_keys"]["ooc_shapes"] = shapes
+    rows["seg_scan_or"]["ooc_shapes"] = _classification_scans(
+        dev, gen, so, R_bucket, "ooc bucket")
+    for name, par in (("window_keys", wk), ("seg_scan_or", so)):
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], par.max_abs_err)
+        for g in rows[name]["ooc_shapes"]:
+            say(f"[kernels] {name} {g['shape']}: {g['ms']:.4f} ms "
+                f"(bound {g['bound_ms']:.4f} ms by {g['bound_by']}, "
+                f"plain {g['plain_ms']:.4f} ms)")
+        say(f"[kernels] {name} at the ooc shapes: {par.cases} cases equal")
     torch.cuda.empty_cache()
 
 
@@ -847,7 +1111,7 @@ def main() -> int:
     phase_e2e(dev, rows)
     phase_near_bound(dev)
     phase_verify_count(dev)
-    phase_grouped(dev, rows)
+    phase_ooc(dev, rows, *phase_grouped(dev, rows))
     say(f"[done] {time.perf_counter() - t_all:.1f}s")
     say(json.dumps({"kernels": list(rows.values())}))
     say(card)

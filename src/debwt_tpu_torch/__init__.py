@@ -6,10 +6,12 @@ reference, which stays unchanged beside it): the BWT of the text
 r_0 # r_1 # ... # r_{n-1} $ under lexicographic suffix order over
 A < C < G < T < # < $, written in the reference deBWT's on-disk layout.
 
-Layers so far (the single-device and the grouped tier):
+Layers so far (the single-device, the grouped and the out-of-core tier):
 
   io.fasta / io.writer   ingest with N-policy, reference-format output
-  io.native              binding of the native LF walker (csrc/lf_walk.cpp)
+  io.native              bindings of the native host helpers: the LF
+                         walker (csrc/lf_walk.cpp), the out-of-core
+                         binner (csrc/ooc_binner.cpp)
   special                separator-window module (host, NumPy)
   ops                    window keys, lexicographic msort, 2-bit packing
   kernels                hand-written CUDA kernels (csrc/*.cu) with their
@@ -17,8 +19,10 @@ Layers so far (the single-device and the grouped tier):
   engine                 fused one-sort classification + SP + blue
   grouped                device-resident grouped tier (key-range groups
                          re-derived from the resident packed text)
-  oocore / bluesort      SP ranking and blue coordinates (the back half
-                         the grouped tier borrows)
+  oocore                 out-of-core tier (host-DRAM or disk buckets,
+                         checkpoint/resume); its back half, SP ranking
+                         (bluesort) and the blue fill, serves the grouped
+                         tier too
   count                  (k+1)-mer counting on the device
   verify                 LF-walk invertibility check
   model / transfer_n     NumPy stage model; N-removal prep tool
@@ -41,6 +45,8 @@ __all__ = [
     "BwtResult",
     "count_kmers",
     "read_kmer_dump",
+    "OocConfig",
+    "build_bwt_ooc",
     "__version__",
 ]
 
@@ -58,4 +64,8 @@ def __getattr__(name):
         from debwt_tpu_torch import count
 
         return getattr(count, name)
+    if name in ("OocConfig", "build_bwt_ooc"):
+        from debwt_tpu_torch import oocore
+
+        return getattr(oocore, name)
     raise AttributeError(name)

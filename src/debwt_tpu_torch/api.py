@@ -2,7 +2,7 @@
 
 The JAX package covers its envelope with four tiers (single-device
 fused engine, grouped device-resident, out-of-core, multi-device). The
-port has the first two so far:
+port has the first three so far:
 
   single   fused one-sort engine (pipeline.build_bwt), every collection
            under the single-device row bound; on a CUDA device the bound
@@ -12,10 +12,13 @@ port has the first two so far:
            the device-resident packed text; N < grouped.MAX_N. Built
            and verified on an H100 80GB up to 600 Mbp (PERF.md); a
            larger N is routed here but has not been measured
+  ooc      out-of-core chunked tier (oocore.build_bwt_ooc) with host-DRAM
+           buckets, where the grouped tier cannot go: N >= grouped.MAX_N,
+           or a single node key that outgrows a group (GroupOverflow).
+           Built on the card at 600 Mbp by calling it directly
+           (PERF.md); the route from here is exercised by the CPU tests
 
-A collection the grouped tier cannot take (N >= MAX_N, or a single node
-key that outgrows a group) raises NotImplementedError naming the
-out-of-core tier, which is not ported yet.
+The multi-device tier is not ported: there is no route to it.
 """
 
 from __future__ import annotations
@@ -73,9 +76,9 @@ def build(
 ) -> BwtResult:
     """Construct the BWT on `device` (the CUDA card by default).
 
-    gcfg (a grouped.GroupedConfig) and stats are handed to the grouped
-    tier when the route takes it, as grouped.build_bwt_grouped takes
-    them; the fused engine reads neither."""
+    gcfg (a grouped.GroupedConfig) is handed to the grouped tier when
+    the route takes it; stats to the grouped or the out-of-core tier,
+    whichever builds. The fused engine reads neither."""
     config = config or PipelineConfig()
     dev = resolve_device(device)
     rows, bound = rows_needed(coll, config.m), single_rows_bound(dev)
@@ -92,24 +95,15 @@ def build(
         MAX_N, GroupOverflow, build_bwt_grouped,
     )
 
-    over = (
-        f"N={coll.bwt_len} needs {rows} sorted rows, over the single-device "
-        f"bound of {bound} on {dev} (the engine's 2^29 rows, or what the "
-        "card's memory holds)"
-    )
-    if coll.bwt_len >= MAX_N:
-        raise NotImplementedError(
-            f"{over}, and N is over the grouped tier's {MAX_N}; the "
-            "out-of-core and multi-device tiers are not ported yet"
-        )
-    _say(f"grouped device-resident tier (N={coll.bwt_len}, one device)")
-    try:
-        return build_bwt_grouped(coll, config, gcfg, stats, device=dev)
-    except GroupOverflow as e:
-        # a single node key outgrew the group cap (pathological repeat
-        # mass): the JAX package falls back to the out-of-core tier's
-        # giant-bucket path here
-        raise NotImplementedError(
-            f"{over}, and the grouped tier overflowed ({e}); the "
-            "out-of-core tier is not ported yet"
-        ) from e
+    if coll.bwt_len < MAX_N:
+        _say(f"grouped device-resident tier (N={coll.bwt_len}, one device)")
+        try:
+            return build_bwt_grouped(coll, config, gcfg, stats, device=dev)
+        except GroupOverflow as e:
+            # a single node key outgrew the group cap (pathological
+            # repeat mass); the out-of-core tier's giant-run path takes it
+            _say(f"grouped tier overflow ({e}); out-of-core fallback")
+    _say(f"out-of-core chunked tier (N={coll.bwt_len}, one device)")
+    from debwt_tpu_torch.oocore import build_bwt_ooc
+
+    return build_bwt_ooc(coll, config, stats=stats, device=dev)

@@ -25,7 +25,8 @@ host:
   * only outputs cross to the host: 2-bit packed fill characters, SP
     event positions and blue entries (branch events only — tiny next
     to the text). SP ranking and the blue fill are the out-of-core
-    tier's back half (oocore._sp_ranks_host, oocore.blue_coordinates).
+    tier's back half (oocore.sp_string, oocore._sp_ranks_host,
+    oocore.blue_fill).
 
 Representation, against the JAX module's (hi, lo) uint32 pairs and
 uint32 positions (torch has no uint32 arithmetic on the CPU):
@@ -407,7 +408,7 @@ def build_bwt_grouped(
     launch counts (test hook). Runs on the CUDA card unless
     device="cpu" is passed."""
     from debwt_tpu_torch.oocore import (
-        SP_CAP, _sp_ranks_host, blue_coordinates,
+        SP_CAP, _sp_ranks_host, blue_fill, sp_string,
     )
 
     config = config or PipelineConfig()
@@ -597,29 +598,12 @@ def build_bwt_grouped(
     x2p = np.concatenate(
         [coll.x2, np.full(K.TAIL_PAD, K.T, dtype=np.uint8)]
     )
-    sp_pos = np.sort(np.concatenate(
-        ev_parts + [sp.spec_branch_pos.astype(np.int64)]
-    )) if (ev_parts or sp.spec_branch_pos.size) else np.empty(0, np.int64)
+    sp_pos, sp6 = sp_string(ev_parts, sp.spec_branch_pos, sep, x2p, N, k)
     L = sp_pos.shape[0]
-    nxt = np.searchsorted(sep, sp_pos)
-    d_at = sep[nxt] - sp_pos
-    is_sepc = d_at == k
-    sp6 = np.where(
-        is_sepc, np.where(sp_pos + k == N - 1, 5, 4), x2p[sp_pos + k]
-    ).astype(np.uint8)
     rank = _sp_ranks_host(sp6, L, SP_CAP, dev, _say)
     _mark("SP rank")
 
-    n_blue = 0
-    if blue_parts:
-        b_base = np.concatenate([p[0] for p in blue_parts])
-        b_pos = np.concatenate([p[1] for p in blue_parts])
-        b_char = np.concatenate([p[2] for p in blue_parts])
-        n_blue = b_base.shape[0]
-        coords, chars = blue_coordinates(
-            b_base, b_pos, b_char, rank, sp_pos, dev
-        )
-        bwt6[coords] = chars
+    n_blue = blue_fill(bwt6, blue_parts, rank, sp_pos, dev)
     _mark("blue fill")
 
     if config.check:

@@ -1,11 +1,14 @@
-"""ctypes binding for the native LF walker (csrc/lf_walk.cpp).
+"""ctypes bindings for the native host helpers: the LF walker
+(csrc/lf_walk.cpp) and the out-of-core tier's pass-A binner
+(csrc/ooc_binner.cpp).
 
-The counterpart of the walker entries of the JAX package's
-io/native.py. The library is built with the host C++ compiler at first
-use (kernels/_build.py) into csrc/build/. A walker that does not build
-raises: verify.py never turns into its Python loop on its own. The
-Python loop is the version the tests hold the walker against; they
-select it by replacing `has_lf_walk`.
+The counterpart of the walker and binner entries of the JAX package's
+io/native.py. Each library is built with the host C++ compiler at first
+use (kernels/_build.py) into csrc/build/. A helper that does not build
+raises: verify.py never turns into its Python loop, nor oocore into its
+NumPy binner, on its own. Those are the versions the tests hold the
+helpers against; they select the walk loop by replacing `has_lf_walk`
+and call the NumPy binner, oocore._bin_rows_numpy, directly.
 """
 
 from __future__ import annotations
@@ -78,3 +81,53 @@ def lf_walk_occ(bwt6, x6, occ6, cum, sample: int, steps: int,
         bwt6.ctypes.data, x6.ctypes.data, occ6.ctypes.data, is_u32,
         cum.ctypes.data, sample, n, steps, start,
     ))
+
+
+def _binner():
+    lib = _build.load("ooc_binner")
+    if lib.debwt_ooc_bin.argtypes is None:
+        lib.debwt_ooc_bin.restype = ctypes.c_int64
+        lib.debwt_ooc_bin.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
+        ]
+    return lib
+
+
+def ooc_bin(key, c0: int, sep, x2p, N: int, splitters, split_c: int,
+            k: int, threads: int = 0):
+    """Native pass-A binner: the rows of the node keys `key` (int64,
+    positions c0 .. c0 + len(key) - 1) whose k-window holds no
+    separator, grouped by bucket. Returns (out_key int64, out_k16
+    uint16, out_pos int64, counts int64[nb]); bucket b's rows are
+    out_*[sum(counts[:b]) : sum(counts[:b + 1])], in ascending position.
+    threads <= 0: min(hardware threads, 8); the output is the same for
+    every count."""
+    _checked(key, np.int64, "key")
+    _checked(sep, np.int64, "sep")
+    _checked(x2p, np.uint8, "x2p")
+    _checked(splitters, np.uint32, "splitters")
+    C_real = key.shape[0]
+    nb = splitters.shape[0] + 1
+    if not (0 < split_c <= k < 32 and 0 <= c0 and c0 + C_real <= N
+            and x2p.shape[0] >= N and sep.shape[0] >= 1
+            and sep[-1] == N - 1):
+        raise ValueError("ooc_bin: sizes, k or positions out of range")
+    out_key = np.empty(C_real, np.int64)
+    out_k16 = np.empty(C_real, np.uint16)
+    out_pos = np.empty(C_real, np.int64)
+    counts = np.zeros(nb, np.int64)
+    total = _binner().debwt_ooc_bin(
+        key.ctypes.data, c0, C_real, sep.ctypes.data, sep.shape[0],
+        x2p.ctypes.data, N, splitters.ctypes.data, nb, split_c, k, threads,
+        out_key.ctypes.data, out_k16.ctypes.data, out_pos.ctypes.data,
+        counts.ctypes.data,
+    )
+    if total != int(counts.sum()):
+        raise RuntimeError("ooc_bin: row count and bucket counts disagree")
+    return out_key[:total], out_k16[:total], out_pos[:total], counts

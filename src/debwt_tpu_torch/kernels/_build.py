@@ -9,9 +9,10 @@ kept beside each library as `.log`. `build_all` starts one compiler per
 source at once and waits for all of them.
 
 A name in HOST_SOURCES is a host helper, `csrc/<name>.cpp` (the LF
-walker of verify.py): the same scheme with the host C++ compiler, so it
-also builds where there is no nvcc. A source that does not build raises;
-nothing steps in for it.
+walker of verify.py, the out-of-core tier's pass-A binner): the same
+scheme with the host C++ compiler (`-pthread`: the binner starts
+threads), so it also builds where there is no nvcc. A source that does
+not build raises; nothing steps in for it.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without nvcc.
@@ -30,12 +31,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("window_keys", "seg_or")
-HOST_SOURCES = ("lf_walk",)
+HOST_SOURCES = ("lf_walk", "ooc_binner")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -17,6 +17,7 @@ from debwt_tpu_torch.golden import golden_bwt
 from debwt_tpu_torch.grouped import GroupedConfig, build_bwt_grouped
 from debwt_tpu_torch.kernels import seg_or
 from debwt_tpu_torch.kernels import window_keys as wk
+from debwt_tpu_torch.oocore import OocConfig, build_bwt_ooc
 from debwt_tpu_torch.ops import pack_2bit_words
 from debwt_tpu_torch.pipeline import build_bwt
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
@@ -196,6 +197,71 @@ def test_api_routes_to_grouped_on_card(cuda, monkeypatch):
     r = api.build(coll, PipelineConfig(m=32, check=True),
                   gcfg=GroupedConfig(cap=512), stats=stats)
     assert "groups.select" in r.timings and stats["cap"] == 512
+    assert r.packed() == golden_bwt(coll).packed()
+
+
+@pytest.mark.parametrize("m,fields", [
+    (12, dict(chunk=256, n_buckets=8)), (24, dict(chunk=512, n_buckets=4)),
+    (32, dict(chunk=256, n_buckets=64)),
+    (32, dict(chunk=512, n_buckets=2, bucket_cap=32)),
+])
+def test_ooc_on_card_matches_golden(cuda, m, fields):
+    """The out-of-core tier on the card: golden bytes, kernel 1 once a
+    chunk and kernel 2 three times a device classification."""
+    coll = SequenceCollection.from_reads(_repeat_reads(m + fields["n_buckets"]))
+    stats = {}
+    wk.window_keys.launches = seg_or.seg_scan_or.launches = 0
+    r = build_bwt_ooc(coll, PipelineConfig(m=m, check=True), OocConfig(**fields),
+                      stats=stats)
+    want = {"window_keys": stats["n_chunks"],
+            "seg_scan_or": 3 * stats["classifications"]}
+    assert stats["n_chunks"] > 1 and stats["classifications"] >= 1
+    assert (wk.window_keys.launches, seg_or.seg_scan_or.launches) == (
+        want["window_keys"], want["seg_scan_or"])
+    assert stats["launches"] == want
+    assert (stats["oversized_buckets"] > 0) == ("bucket_cap" in fields)
+    g = golden_bwt(coll)
+    assert r.packed() == g.packed()
+    np.testing.assert_array_equal(r.sharp_pos, g.sharp_pos)
+    assert r.dollar_pos == g.dollar_pos
+
+
+def test_ooc_on_card_resumes_mid_pass_b(cuda, monkeypatch, tmp_path):
+    from debwt_tpu_torch import oocore
+
+    coll = SequenceCollection.from_reads(_repeat_reads(11))
+    ooc = OocConfig(chunk=256, n_buckets=8, spill_dir=str(tmp_path / "ck"),
+                    checkpoint=True)
+    real = oocore._classify_bucket
+    calls = {"n": 0}
+
+    def crash_on_4th(*a):
+        calls["n"] += 1
+        if calls["n"] == 4:
+            raise RuntimeError("simulated crash")
+        return real(*a)
+
+    monkeypatch.setattr(oocore, "_classify_bucket", crash_on_4th)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        build_bwt_ooc(coll, PipelineConfig(m=32), ooc)
+    monkeypatch.setattr(oocore, "_classify_bucket", real)
+    stats = {}
+    r = build_bwt_ooc(coll, PipelineConfig(m=32), ooc, stats=stats)
+    assert stats["launches"]["window_keys"] == 0
+    assert stats["launches"]["seg_scan_or"] == 3 * stats["classifications"]
+    assert r.packed() == golden_bwt(coll).packed()
+    assert list((tmp_path / "ck").glob("bk*")) == []
+
+
+def test_api_routes_to_ooc_on_card(cuda, monkeypatch):
+    from debwt_tpu_torch import grouped
+
+    coll = SequenceCollection.from_reads(_repeat_reads(5))
+    monkeypatch.setattr(api, "_SINGLE_ROWS", 64)
+    monkeypatch.setattr(grouped, "MAX_N", 64)
+    stats = {}
+    r = api.build(coll, PipelineConfig(m=32, check=True), stats=stats)
+    assert stats["n_buckets"] == 64 and "pass B (bucket sorts)" in r.timings
     assert r.packed() == golden_bwt(coll).packed()
 
 

@@ -417,21 +417,25 @@ def test_api_routes_over_the_bound_to_grouped(monkeypatch, capsys):
     np.testing.assert_array_equal(res.bwt6, g.bwt6)
 
 
-def test_api_names_the_out_of_core_tier_on_overflow(monkeypatch):
+def test_api_names_the_out_of_core_tier_on_overflow(monkeypatch, capsys):
     """A single node key exceeding the group cap (the all-A read of
-    tests/test_grouped.py): NotImplementedError that names the
-    out-of-core tier, chained from the overflow."""
+    tests/test_grouped.py): the route names the overflow and the
+    out-of-core tier, which builds golden's bytes; and past the grouped
+    tier's position bound the route goes there straight."""
     coll = SequenceCollection.from_reads([np.zeros(3000, dtype=np.uint8)])
     monkeypatch.setattr(api, "_SINGLE_ROWS", 64)
     gcfg = GroupedConfig(cap=256)
-    with pytest.raises(NotImplementedError, match="out-of-core") as ei:
-        api.build(coll, PipelineConfig(m=32), device="cpu", gcfg=gcfg)
-    assert isinstance(ei.value.__cause__, GroupOverflow)
-    # and past the grouped tier's position bound
+    res = api.build(coll, PipelineConfig(m=32), device="cpu", gcfg=gcfg,
+                    verbose=True)
+    err = capsys.readouterr().err
+    assert "grouped tier overflow" in err and "out-of-core" in err
+    assert res.packed() == golden_bwt(coll).packed()
     monkeypatch.setattr(grouped, "MAX_N", 1000)
-    with pytest.raises(NotImplementedError, match="out-of-core") as ei:
-        api.build(coll, PipelineConfig(m=32), device="cpu", gcfg=gcfg)
-    assert ei.value.__cause__ is None
+    res = api.build(coll, PipelineConfig(m=32), device="cpu", gcfg=gcfg,
+                    verbose=True)
+    err = capsys.readouterr().err
+    assert "out-of-core" in err and "grouped" not in err
+    assert res.packed() == golden_bwt(coll).packed()
 
 
 def test_grouped_default_device_needs_a_card(monkeypatch):

@@ -122,8 +122,8 @@ def test_default_device_needs_a_card(monkeypatch):
 
 def test_api_routes_single_and_refuses_larger(monkeypatch):
     """Under the bound: the fused engine. Over it: the grouped tier,
-    the same bytes. Over the grouped tier's position bound: refused,
-    naming the tier that is not ported."""
+    the same bytes. Over the grouped tier's position bound, which the
+    grouped tier refuses: the out-of-core tier, the same bytes."""
     from debwt_tpu_torch import grouped
 
     rng = np.random.default_rng(1)
@@ -135,8 +135,8 @@ def test_api_routes_single_and_refuses_larger(monkeypatch):
     r = api.build(coll, device="cpu")
     assert r.packed() == g.packed() and "groups.select" in r.timings
     monkeypatch.setattr(grouped, "MAX_N", 100)
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        api.build(coll, device="cpu")
+    r = api.build(coll, device="cpu")
+    assert r.packed() == g.packed() and "pass B (bucket sorts)" in r.timings
 
 
 @pytest.mark.parametrize(
@@ -149,9 +149,9 @@ def test_api_routes_single_and_refuses_larger(monkeypatch):
 def test_api_bounds_single_tier_by_card_memory(monkeypatch, free_memory, fits):
     """On a CUDA device a collection whose rows exceed what the card's
     memory holds goes to the grouped tier before anything is allocated
-    (not into an out-of-memory error from the fused engine), and is
-    refused with NotImplementedError where that tier cannot take it."""
-    from debwt_tpu_torch import grouped
+    (not into an out-of-memory error from the fused engine), and to the
+    out-of-core tier where the grouped tier cannot take it."""
+    from debwt_tpu_torch import grouped, oocore
 
     coll = SequenceCollection.from_reads(["ACGT" * 10, "TTGCA" * 7])
     assert api.rows_needed(coll, 12) == 112   # _bucket(77) = 80, _pow2(22) = 32
@@ -171,9 +171,13 @@ def test_api_bounds_single_tier_by_card_memory(monkeypatch, free_memory, fits):
     assert (built, went) == (([cuda], []) if fits else ([], [cuda]))
     if not fits:
         monkeypatch.setattr(grouped, "MAX_N", coll.bwt_len)
-        with pytest.raises(NotImplementedError, match="card's memory"):
-            api.build(coll, PipelineConfig(m=12))
-        assert (built, went) == ([], [cuda])
+        ooc = []
+        monkeypatch.setattr(
+            oocore, "build_bwt_ooc",
+            lambda coll, config, stats, device: ooc.append(device),
+        )
+        api.build(coll, PipelineConfig(m=12))
+        assert (built, went, ooc) == ([], [cuda], [cuda])
 
 
 def test_single_rows_bound_is_the_smaller_of_engine_and_memory(monkeypatch):
