@@ -62,6 +62,21 @@ Phases, in order; any failure ends the script with a non-zero code:
            plain versions and timed at this tier's shapes (window_keys on
            one chunk's packed words at w = 31 and 11, the classification
            scans at the largest bucket's rows)
+  dist     the multi-device tier (parallel.dist_build_bwt), one process a
+           rank: through api.build(n_devices=1), one rank over NCCL at 4.6
+           and 250 Mbp against the reference hashes (seconds, Mbp/s, stage
+           times, peak device bytes a text position, kernel-1 launches);
+           kernel 1 against its plain version and timed at the shard
+           shapes of 250 Mbp on one and on two ranks; `python -m
+           debwt_tpu_torch.cli --dist 1` in a subprocess at 4.6 Mbp, its
+           files against the reference hashes; then two rank processes
+           on the one card (tests/torch_dist_worker.py): NCCL is asked
+           once to join both (its answer is printed), then gloo with host
+           staging builds 4.6 Mbp (reference hashes), 40 Mbp (the fused
+           engine's hashes) and the ooc x dist composition at 4.6 Mbp
+           (sp_cap 2^12: sharded SP ranking; spilled with checkpoints,
+           each rank under its own subdirectory; reference hashes); a
+           failed rank fails the phase
 
 The lines before the last are the `kernels` JSON object and the card's
 name and power limit; the last is {"ok": true, "device": {...}}.
@@ -99,6 +114,10 @@ FULL_MBP = 600.0            # rows_needed > 2^29: over any card's bound
 OOC_CHUNK = 1 << 26         # OocConfig().chunk
 OOC_SPILL_MBP = 140.0       # spilled, interrupted and resumed
 VERIFY_STEPS = 1 << 22
+DIST_MBP = (4.6, 250.0)     # one rank over NCCL, against the reference
+DIST_GLOO_MBP = 40.0        # two ranks on one card, against the fused engine
+OOC_DIST_SP_CAP = 1 << 12   # under 4.6 Mbp's 33,979 SP events: sharded ranking
+RANK_TIMEOUT = 600          # seconds a rank process may take
 
 
 def say(*a):
@@ -1053,6 +1072,244 @@ def _ooc_kernel_shapes(dev, rows: dict, R_bucket: int):
     torch.cuda.empty_cache()
 
 
+def phase_dist(dev, rows: dict):
+    """The multi-device tier: one rank over NCCL through api.build at
+    full size, kernel 1 at the shard shapes, the CLI's --dist 1, then two
+    rank processes sharing the card."""
+    import torch
+    import torch.distributed as tdist
+
+    from debwt_tpu_torch import api
+    from debwt_tpu_torch.synth import synth_collection
+    from debwt_tpu_torch.types import PipelineConfig
+
+    cache = json.loads((ROOT / ".bench_cache.json").read_text())
+    config = PipelineConfig(m=32)
+    torch.cuda.empty_cache()
+    N = None
+    for mbp in DIST_MBP:
+        ref = cache[f"ref_mbp{mbp}"]
+        t0 = time.perf_counter()
+        coll = synth_collection(mbp)
+        t_synth = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        r = api.build(coll, config, device=dev, n_devices=1)
+        hashes = _hashes(r)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+        if counts != {"window_keys": 1, "seg_scan_or": 0}:
+            raise AssertionError(f"dist {mbp} Mbp: launches {counts}")
+        if hashes != (ref["obj_sha"], ref["sharp_sha"], ref["dollar"]):
+            raise AssertionError(f"dist {mbp} Mbp: differs from the reference hashes")
+        peak, reserved = (torch.cuda.max_memory_allocated(),
+                          torch.cuda.max_memory_reserved())
+        N = coll.bwt_len
+        say(json.dumps({
+            "dist_mbp": mbp, "n": N, "m": 32, "ranks": 1,
+            "backend": tdist.get_backend(), "hashes_equal_reference": True,
+            "build_s": dt, "mbps": (N - coll.n_reads) / 1e6 / dt,
+            "stage_s": r.timings, "peak_bytes": peak,
+            "peak_reserved_bytes": reserved, "peak_bytes_per_position": peak / N,
+            "peak_reserved_bytes_per_position": reserved / N,
+            "launches": counts, "synth_s": t_synth,
+        }))
+        del r, coll
+        torch.cuda.empty_cache()
+    rows["window_keys"]["launches_dist"] = counts["window_keys"]
+    tdist.destroy_process_group()
+    _dist_kernel_shapes(dev, rows, N)
+    _dist_cli(dev, cache[f"ref_mbp{min(DIST_MBP)}"])
+    _dist_two_ranks(dev, rows, cache[f"ref_mbp{min(DIST_MBP)}"])
+
+
+def _dist_kernel_shapes(dev, rows: dict, N: int):
+    """Kernel 1's uint8 entry on a shard's codes x2[: Ns + m - 1], Ns =
+    ceil(N / ranks), at one and two ranks: against its plain version,
+    then timed beside the bound."""
+    import torch
+
+    from debwt_tpu_torch.kernels.window_keys import window_keys, window_keys_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    wk, w, shapes = Parity("window_keys"), 32, []
+    for ranks in (1, 2):
+        Ns = -(-N // ranks)
+        x = torch.randint(0, 4, (Ns + w - 1,), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        what = f"uint8 codes of a {ranks}-rank shard of {N}, n_out {Ns}, w {w}"
+        wk.check(window_keys(x, w, Ns), window_keys_plain(x, w, Ns), what)
+        b_ms, b_by = bound_ms((Ns + w - 1) + 8 * Ns, 3 * Ns)
+        shapes.append(dict(
+            shape=what, ms=cuda_ms(lambda: window_keys(x, w, Ns), reps=20),
+            plain_ms=cuda_ms(lambda: window_keys_plain(x, w, Ns), reps=3, warm=1),
+            bound_ms=b_ms, bound_by=b_by))
+        del x
+        torch.cuda.empty_cache()
+    rows["window_keys"]["dist_shapes"] = shapes
+    rows["window_keys"]["max_abs_err"] = max(rows["window_keys"]["max_abs_err"],
+                                             wk.max_abs_err)
+    for g in shapes:
+        say(f"[kernels] window_keys {g['shape']}: {g['ms']:.4f} ms "
+            f"(bound {g['bound_ms']:.4f} ms by {g['bound_by']}, "
+            f"plain {g['plain_ms']:.4f} ms)")
+    say(f"[kernels] window_keys at the dist shapes: {wk.cases} cases equal")
+
+
+def _write_fasta(path, mbp: float):
+    """The synthetic collection of `mbp` as FASTA, 80 bases a line."""
+    import numpy as np
+
+    from debwt_tpu_torch.synth import synth_codes
+
+    codes, lengths = synth_codes(mbp)
+    text = np.frombuffer(b"ACGT", dtype=np.uint8)[codes]
+    with open(path, "wb") as f:
+        start = 0
+        for i, n in enumerate(lengths.tolist()):
+            seq = text[start : start + n].tobytes()
+            start += n
+            f.write(f">genome{i}\n".encode())
+            f.write(b"\n".join(seq[j : j + 80] for j in range(0, n, 80)) + b"\n")
+
+
+def _dist_cli(dev, ref: dict):
+    """python -m debwt_tpu_torch.cli --dist 1 at 4.6 Mbp: its three
+    files against the reference hashes."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory(prefix="debwt_dist_cli_") as d:
+        fa, obj = Path(d) / "in.fa", Path(d) / "out.bwt"
+        _write_fasta(fa, min(DIST_MBP))
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "debwt_tpu_torch.cli", "--dist", "1",
+             "--device", dev.type, "--timings", "-o", str(obj), str(fa)],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=d,
+            capture_output=True, text=True, timeout=RANK_TIMEOUT)
+        dt = time.perf_counter() - t0
+        se = run.stderr
+        if run.returncode != 0:
+            raise AssertionError(f"cli --dist 1 exited {run.returncode}:\n{se}")
+        sharp = np.frombuffer((Path(d) / "out.bwt.#").read_bytes(), "<u8")
+        dollar = int(np.frombuffer((Path(d) / "out.bwt.$").read_bytes(), "<u8")[0])
+        got = (hashlib.sha256(obj.read_bytes()).hexdigest(),
+               hashlib.sha256(sharp.astype(np.int64).tobytes()).hexdigest(),
+               dollar)
+        if got != (ref["obj_sha"], ref["sharp_sha"], ref["dollar"]):
+            raise AssertionError("cli --dist 1: files differ from the reference hashes")
+        route = [ln for ln in se.splitlines() if "route:" in ln]
+    say(json.dumps({"dist_cli_mbp": min(DIST_MBP), "ranks": 1,
+                    "files_equal_reference": True, "route": route,
+                    "process_s": dt}))
+
+
+def _nccl_answer(stderr: str) -> list:
+    """The lines of a rank's stderr that carry NCCL's error, else its
+    last line."""
+    keys = ("Duplicate GPU", "ncclInvalidUsage", "invalid usage", "Error:")
+    lines = [ln.strip()[:400] for ln in stderr.splitlines()
+             if any(k in ln for k in keys)]
+    return list(dict.fromkeys(lines))[:4] or stderr.strip().splitlines()[-1:]
+
+
+def _rank_hashes(g: dict) -> tuple:
+    """_hashes of one rank's result as the rank worker saved it."""
+    import numpy as np
+
+    return (hashlib.sha256(g["packed"].tobytes()).hexdigest(),
+            hashlib.sha256(g["sharp"].astype(np.int64).tobytes()).hexdigest(),
+            int(g["dollar"]))
+
+
+def _dist_two_ranks(dev, rows: dict, ref: dict):
+    """Two rank processes on the one card (tests/torch_dist_worker.py,
+    the CPU tests' rank worker): NCCL asked once, then gloo with host
+    staging. The ooc x dist build spills and checkpoints, each rank
+    under its own subdirectory of one spill directory."""
+    import os
+    import tempfile
+
+    import torch
+
+    from debwt_tpu_torch import api
+    from debwt_tpu_torch.synth import synth_collection
+    from debwt_tpu_torch.types import PipelineConfig
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_dist_worker import launch
+
+    with tempfile.TemporaryDirectory(prefix="debwt_dist_ranks_") as d:
+        dev0 = str(torch.device(dev.type, dev.index or 0))
+        t0 = time.perf_counter()
+        ends = launch(Path(d) / "nccl", 2, [dict(name="probe", kind="probe")],
+                      timeout=120, device=dev0, backend="nccl",
+                      env={"NCCL_DEBUG": "WARN"}).wait()
+        say(json.dumps({"dist_nccl_two_ranks_one_card": {
+            "exit_codes": [rc for rc, _se in ends],
+            "accepted": all(rc == 0 for rc, _se in ends),
+            "answer": [_nccl_answer(se) for _rc, se in ends],
+            "seconds": time.perf_counter() - t0}}))
+
+        coll = synth_collection(DIST_GLOO_MBP)
+        fused = _hashes(api.build(coll, PipelineConfig(m=32), device=dev))
+        del coll
+        torch.cuda.empty_cache()
+        reference = (ref["obj_sha"], ref["sharp_sha"], ref["dollar"])
+        spill = Path(d) / "spill"
+        cases = [dict(name="dist_small", kind="build", mbp=min(DIST_MBP)),
+                 dict(name="dist_large", kind="build", mbp=DIST_GLOO_MBP),
+                 dict(name="ooc_dist", kind="ooc", mbp=min(DIST_MBP),
+                      sp_cap=OOC_DIST_SP_CAP, spill_dir=str(spill),
+                      checkpoint=True)]
+        want = {"dist_small": reference, "dist_large": fused,
+                "ooc_dist": reference}
+        t0 = time.perf_counter()
+        got = launch(Path(d) / "gloo", 2, cases, timeout=RANK_TIMEOUT,
+                     device=dev0, backend="gloo").results()
+        dt = time.perf_counter() - t0
+        spill_dirs = sorted(os.listdir(spill))
+    for name, w in want.items():
+        for r, g in enumerate(got[name]):
+            launches = {k: int(g["launches_" + k])
+                        for k in ("window_keys", "seg_scan_or")}
+            if _rank_hashes(g) != w:
+                raise AssertionError(f"gloo rank {r} {name}: hashes differ")
+            if name != "ooc_dist" and launches != {"window_keys": 1,
+                                                   "seg_scan_or": 0}:
+                raise AssertionError(f"gloo rank {r} {name}: launches {launches}")
+            if name == "ooc_dist" and not (bool(g["sharded_rank"])
+                                           and launches["seg_scan_or"] >= 3):
+                raise AssertionError(f"gloo rank {r} {name}: not sharded")
+    if spill_dirs != ["rank0", "rank1"]:
+        raise AssertionError(f"ooc x dist spill directory holds {spill_dirs}")
+    rows["window_keys"]["launches_dist_two_ranks"] = int(
+        got["dist_large"][0]["launches_window_keys"])
+    for k in ("window_keys", "seg_scan_or"):
+        rows[k]["launches_ooc_dist"] = int(got["ooc_dist"][0]["launches_" + k])
+    say(json.dumps({
+        "dist_two_ranks_one_card": True, "backend": "gloo",
+        "devices": [dev0, dev0], "process_s": dt,
+        "builds": [dict(
+            name=c["name"], mbp=c["mbp"], build_s=float(g["seconds"]),
+            stage_s=json.loads(str(g["timings"])),
+            launches={k: int(g["launches_" + k])
+                      for k in ("window_keys", "seg_scan_or")},
+            **({"sharded_rank": bool(g["sharded_rank"]),
+                "sp_len": int(g["sp_len"]), "spill_dirs": spill_dirs}
+               if "sharded_rank" in g else {}))
+            for c in cases for g in got[c["name"]][:1]],
+        "hashes_equal": ["reference", "fused engine", "reference"],
+    }))
+
+
 def profile_build(fn, mbp):
     """fn() once under torch.profiler: device time by kernel name and
     the device's busy share of fn's wall time."""
@@ -1112,6 +1369,7 @@ def main() -> int:
     phase_near_bound(dev)
     phase_verify_count(dev)
     phase_ooc(dev, rows, *phase_grouped(dev, rows))
+    phase_dist(dev, rows)
     say(f"[done] {time.perf_counter() - t_all:.1f}s")
     say(json.dumps({"kernels": list(rows.values())}))
     say(card)

@@ -6,7 +6,8 @@ reference, which stays unchanged beside it): the BWT of the text
 r_0 # r_1 # ... # r_{n-1} $ under lexicographic suffix order over
 A < C < G < T < # < $, written in the reference deBWT's on-disk layout.
 
-Layers so far (the single-device, the grouped and the out-of-core tier):
+Layers (the single-device, the grouped, the out-of-core and the
+multi-device tier):
 
   io.fasta / io.writer   ingest with N-policy, reference-format output
   io.native              bindings of the native host helpers: the LF
@@ -23,6 +24,9 @@ Layers so far (the single-device, the grouped and the out-of-core tier):
                          checkpoint/resume); its back half, SP ranking
                          (bluesort) and the blue fill, serves the grouped
                          tier too
+  parallel               multi-device tier over a torch.distributed group:
+                         mesh, collectives, dist (dist_build_bwt), sprank
+                         (sharded SP ranking, also for ooc x dist)
   count                  (k+1)-mer counting on the device
   verify                 LF-walk invertibility check
   model / transfer_n     NumPy stage model; N-removal prep tool
@@ -47,6 +51,8 @@ __all__ = [
     "read_kmer_dump",
     "OocConfig",
     "build_bwt_ooc",
+    "make_mesh",
+    "dist_build_bwt",
     "__version__",
 ]
 
@@ -64,6 +70,10 @@ def __getattr__(name):
         from debwt_tpu_torch import count
 
         return getattr(count, name)
+    if name in ("make_mesh", "dist_build_bwt"):
+        from debwt_tpu_torch import parallel
+
+        return getattr(parallel, name)
     if name in ("OocConfig", "build_bwt_ooc"):
         from debwt_tpu_torch import oocore
 

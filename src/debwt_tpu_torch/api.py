@@ -1,8 +1,7 @@
 """Tier routing: one entry point that picks the execution path.
 
-The JAX package covers its envelope with four tiers (single-device
-fused engine, grouped device-resident, out-of-core, multi-device). The
-port has the first three so far:
+The JAX package covers its envelope with four tiers, and so does the
+port:
 
   single   fused one-sort engine (pipeline.build_bwt), every collection
            under the single-device row bound; on a CUDA device the bound
@@ -17,8 +16,13 @@ port has the first three so far:
            or a single node key that outgrows a group (GroupOverflow).
            Built on the card at 600 Mbp by calling it directly
            (PERF.md); the route from here is exercised by the CPU tests
+  dist     multi-device tier (parallel.dist_build_bwt), one process a
+           device over a torch.distributed group: when the caller names
+           n_devices, or when the joined group has more than one rank
+           and the text is over the single-device bound. The ooc and
+           grouped tiers get that group's mesh for sharded SP ranking.
 
-The multi-device tier is not ported: there is no route to it.
+With no process group joined, every route is that of one device.
 """
 
 from __future__ import annotations
@@ -73,23 +77,47 @@ def build(
     verbose: bool = False,
     gcfg=None,
     stats: dict | None = None,
+    n_devices: int | None = None,
 ) -> BwtResult:
     """Construct the BWT on `device` (the CUDA card by default).
 
-    gcfg (a grouped.GroupedConfig) is handed to the grouped tier when
-    the route takes it; stats to the grouped or the out-of-core tier,
-    whichever builds. The fused engine reads neither."""
+    n_devices: build with the multi-device tier over that many ranks
+    (the CLI's --dist; more than one needs a joined process group,
+    parallel.init_distributed). gcfg (a grouped.GroupedConfig) is handed
+    to the grouped tier when the route takes it; stats to the grouped or
+    the out-of-core tier, whichever builds. The fused engine and the
+    multi-device tier read neither."""
     config = config or PipelineConfig()
     dev = resolve_device(device)
-    rows, bound = rows_needed(coll, config.m), single_rows_bound(dev)
 
     def _say(msg):
         if verbose:
             print(f"[debwt-torch] route: {msg}", file=sys.stderr)
 
+    if n_devices:
+        from debwt_tpu_torch.parallel import dist_build_bwt, make_mesh
+
+        _say(f"distributed over {n_devices} devices (requested)")
+        return dist_build_bwt(coll, config, make_mesh(n_devices, device=dev))
+
+    rows, bound = rows_needed(coll, config.m), single_rows_bound(dev)
     if rows < bound:
         _say("single-device fused engine")
         return build_bwt(coll, config, device=dev)
+
+    import torch.distributed as tdist
+
+    world = tdist.get_world_size() if tdist.is_initialized() else 1
+    sharded = {}     # the mesh for sharded SP ranking, where there is one
+    if world > 1:
+        from debwt_tpu_torch.parallel import dist_build_bwt, make_mesh
+
+        sharded["mesh"] = make_mesh(world, device=dev)
+        # the dist tier's bound is per shard (shard-local int32 arrays)
+        if -(-coll.bwt_len // world) < bound:
+            _say(f"distributed over all {world} ranks (N={coll.bwt_len} "
+                 "exceeds the single-device bound)")
+            return dist_build_bwt(coll, config, sharded["mesh"])
 
     from debwt_tpu_torch.grouped import (
         MAX_N, GroupOverflow, build_bwt_grouped,
@@ -98,12 +126,13 @@ def build(
     if coll.bwt_len < MAX_N:
         _say(f"grouped device-resident tier (N={coll.bwt_len}, one device)")
         try:
-            return build_bwt_grouped(coll, config, gcfg, stats, device=dev)
+            return build_bwt_grouped(coll, config, gcfg, stats, device=dev,
+                                     **sharded)
         except GroupOverflow as e:
             # a single node key outgrew the group cap (pathological
             # repeat mass); the out-of-core tier's giant-run path takes it
             _say(f"grouped tier overflow ({e}); out-of-core fallback")
-    _say(f"out-of-core chunked tier (N={coll.bwt_len}, one device)")
+    _say(f"out-of-core chunked tier (N={coll.bwt_len}, {world} rank(s))")
     from debwt_tpu_torch.oocore import build_bwt_ooc
 
-    return build_bwt_ooc(coll, config, stats=stats, device=dev)
+    return build_bwt_ooc(coll, config, stats=stats, device=dev, **sharded)

@@ -2,7 +2,8 @@
 
 Mirrors the reference CLI (src/main.c:175-186):
 
-  python -m debwt_tpu_torch.cli -o out.bwt [-k 32] [--n-policy reject|random|to-g]
+  python -m debwt_tpu_torch.cli -o out.bwt [-k 32] [--dist N]
+                                [--n-policy reject|random|to-g]
                                 [--seed S] [--verify] [--verify-steps S]
                                 [--check] [--timings]
                                 [--device cuda|cpu] input.fa[.gz]
@@ -10,6 +11,12 @@ Mirrors the reference CLI (src/main.c:175-186):
 `-t`/`-j` are accepted for drop-in compatibility and ignored (no
 Jellyfish is needed — counting is on the device). Runs on the CUDA card
 unless --device cpu is given.
+
+--dist N builds with the multi-device tier over N ranks, one process a
+rank: start N processes with DEBWT_COORDINATOR (host:port of rank 0),
+DEBWT_NUM_PROCESSES (N) and DEBWT_PROCESS_ID (0 .. N-1) set; they join
+one process group (NCCL on cards, gloo with --device cpu) before the
+build. Rank 0 alone checks and writes the output and prints.
 """
 
 from __future__ import annotations
@@ -30,9 +37,11 @@ def main(argv=None):
     p.add_argument("-k", dest="m", type=int, default=32,
                    help="k-mer length (12..32, default 32)")
     p.add_argument("-t", dest="threads", type=int, default=None,
-                   help="(compat, ignored)")
+                   help="(compat, ignored — use --dist)")
     p.add_argument("-j", dest="jroot", default=None,
                    help="(compat, ignored — no Jellyfish needed)")
+    p.add_argument("--dist", type=int, default=0, metavar="N",
+                   help="run distributed over N devices (one process each)")
     p.add_argument("--n-policy", default="reject",
                    choices=["reject", "random", "to-g"],
                    help="handling of N/IUPAC characters")
@@ -52,21 +61,42 @@ def main(argv=None):
                    help="device to build on (default: the CUDA card)")
     args = p.parse_args(argv)
 
+    import torch.distributed as tdist
+
+    from debwt_tpu_torch.parallel.mesh import init_distributed
+
+    # join the process group the DEBWT_* variables name, if any; leave
+    # no group this call made (--dist 1 makes a one-rank group itself)
+    had_group = tdist.is_initialized()
+    if not had_group:
+        init_distributed(backend="gloo" if args.device == "cpu" else "nccl")
+    rank0 = not tdist.is_initialized() or tdist.get_rank() == 0
+    try:
+        return _run(args, rank0)
+    finally:
+        if not had_group and tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def _run(args, rank0: bool) -> int:
     def say(msg):
-        print(msg, file=sys.stderr)
+        if rank0:
+            print(msg, file=sys.stderr)
 
     from debwt_tpu_torch.api import build
     from debwt_tpu_torch.io import read_collection, write_bwt
     from debwt_tpu_torch.types import PipelineConfig
 
-    # pre-flight: output writability (src/main.c:55-58)
-    try:
-        with open(args.obj, "wb"):
-            pass
-        os.remove(args.obj)
-    except OSError as e:
-        say(f"cannot create {args.obj}: {e}")
-        return 1
+    # pre-flight: output writability (src/main.c:55-58); rank 0 only,
+    # since concurrent create/remove of one path races across processes
+    if rank0:
+        try:
+            with open(args.obj, "wb"):
+                pass
+            os.remove(args.obj)
+        except OSError as e:
+            say(f"cannot create {args.obj}: {e}")
+            return 1
 
     t0 = time.time()
     coll = read_collection(args.source, args.n_policy, args.seed)
@@ -76,7 +106,8 @@ def main(argv=None):
     config = PipelineConfig(m=args.m, check=args.check)
 
     t1 = time.time()
-    result = build(coll, config, device=args.device, verbose=True)
+    dist = {"n_devices": args.dist} if args.dist else {}
+    result = build(coll, config, device=args.device, verbose=rank0, **dist)
     dt = time.time() - t1
     say(f"[debwt-torch] BWT of {coll.bwt_len} chars in {dt:.2f}s "
         f"({coll.bwt_len/1e6/dt:.2f} Mbp/s)")
@@ -86,10 +117,11 @@ def main(argv=None):
             say(f"[debwt-torch]   {label:28s} {secs:8.3f}s"
                 f"  ({mbp / max(secs, 1e-9):8.2f} Mbp/s)")
 
-    write_bwt(result, args.obj)
+    if rank0:
+        write_bwt(result, args.obj)
     say(f"[debwt-torch] wrote {args.obj} (+ .#, .$)")
 
-    if args.verify:
+    if args.verify and rank0:
         from debwt_tpu_torch.verify import lf_verify
 
         ok = lf_verify(result, coll, max_steps=args.verify_steps)

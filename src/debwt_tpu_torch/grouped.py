@@ -402,11 +402,13 @@ def build_bwt_grouped(
     gcfg: GroupedConfig | None = None,
     stats: dict | None = None,
     device=None,
+    mesh=None,
 ) -> BwtResult:
     """Construct the BWT with bounded device memory. stats, when given,
     is filled with the group plan, the sorted SP stream and the kernels'
     launch counts (test hook). Runs on the CUDA card unless
-    device="cpu" is passed."""
+    device="cpu" is passed. mesh enables sharded SP ranking past
+    oocore.SP_CAP (the ooc x dist composition; see build_bwt_ooc)."""
     from debwt_tpu_torch.oocore import (
         SP_CAP, _sp_ranks_host, blue_fill, sp_string,
     )
@@ -600,7 +602,7 @@ def build_bwt_grouped(
     )
     sp_pos, sp6 = sp_string(ev_parts, sp.spec_branch_pos, sep, x2p, N, k)
     L = sp_pos.shape[0]
-    rank = _sp_ranks_host(sp6, L, SP_CAP, dev, _say)
+    rank = _sp_ranks_host(sp6, L, SP_CAP, dev, _say, mesh)
     _mark("SP rank")
 
     n_blue = blue_fill(bwt6, blue_parts, rank, sp_pos, dev)

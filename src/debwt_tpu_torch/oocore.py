@@ -380,27 +380,42 @@ def sp_string(sp_pos_parts: list, spec_branch_pos, sep, x2p, N: int,
 
 
 def _sp_ranks_host(sp6: np.ndarray, L: int, sp_cap: int, device,
-                   say) -> np.ndarray:
+                   say, mesh=None) -> np.ndarray:
     """Suffix ranks of sp6[:L] as a host int32 array.
 
     L <= sp_cap: single-device prefix tripling (engine path) on
     `device`, over the eighth-power bucket of L (not a power of two,
     which would pad every rank-round sort by up to 2x).
-    L  > sp_cap: the JAX package block-shards the SP string over
-    its device mesh; that belongs to the multi-device tier, which is
-    not ported.
+    L  > sp_cap: the ooc x dist composition. The SP string is
+    block-sharded over `mesh` (a parallel.mesh.Mesh; every rank holds
+    the whole string on the host and calls this together) and ranked
+    by parallel/sprank's sample-sort prefix tripling, so no device
+    holds the whole string; the ranks are then gathered to every
+    rank's host, the tier's working store.
     """
     if L == 0:
         return np.empty(0, np.int32)
-    if L > sp_cap:
+    if L <= sp_cap:
+        ext = np.zeros(_bucket(L), dtype=np.uint8)
+        ext[:L] = sp6
+        return sp_suffix_ranks(torch.from_numpy(ext).to(device), L)[:L].cpu().numpy()
+    if mesh is None or mesh.n < 2:
         raise NotImplementedError(
             f"SP string ({L} events) exceeds the single-device rank cap "
-            f"{sp_cap}; sharded SP ranking belongs to the "
-            "multi-device tier, which is not ported yet"
+            f"{sp_cap} and no multi-device mesh was given; pass mesh= "
+            "(build_bwt_ooc) or route via api.build"
         )
-    ext = np.zeros(_bucket(L), dtype=np.uint8)
-    ext[:L] = sp6
-    return sp_suffix_ranks(torch.from_numpy(ext).to(device), L)[:L].cpu().numpy()
+    from debwt_tpu_torch.parallel.collectives import all_gather_rows
+    from debwt_tpu_torch.parallel.sprank import sp_ranks_sharded
+
+    n, r = mesh.n, mesh.rank
+    Pb = max(8, _pow2(-(-L // n)))   # round 0 reads an 8-char halo
+    blk = np.zeros(Pb, dtype=np.uint8)
+    part = sp6[r * Pb : min(L, (r + 1) * Pb)]
+    blk[: part.shape[0]] = part
+    rank_blk = sp_ranks_sharded(mesh, torch.from_numpy(blk).to(mesh.device), L)
+    say(f"SP ranks: sharded over {n} devices (block {Pb})")
+    return all_gather_rows(mesh, rank_blk)[:L].cpu().numpy()
 
 
 def blue_coordinates(b_base, b_pos, b_char, rank, sp_pos, device):
@@ -460,10 +475,18 @@ def build_bwt_ooc(
     ooc: OocConfig | None = None,
     stats: dict | None = None,
     device=None,
+    mesh=None,
 ) -> BwtResult:
     """Construct the BWT with device memory bounded by the chunk and the
     bucket, and the working set in host DRAM or under ooc.spill_dir.
-    Runs on the CUDA card unless device="cpu" is passed.
+    Runs on the CUDA card unless device="cpu" is passed. mesh (a
+    parallel.mesh.Mesh, every rank calling with the same collection):
+    past ooc.sp_cap the SP ranking is sharded over it (the ooc x dist
+    composition); every other stage runs on each rank whole. With a
+    mesh of two or more ranks each rank spills and checkpoints under
+    its own ooc.spill_dir/rank{r}, so that ranks sharing a host (or a
+    directory) never touch each other's buckets or manifest, and each
+    resumes from its own.
 
     stats, when given, is filled with the JAX package's keys
     {'bucket_cap', 'chunk', 'n_chunks', 'sp_len', 'n_blue',
@@ -473,6 +496,9 @@ def build_bwt_ooc(
     'oversized_buckets'."""
     config = config or PipelineConfig()
     ooc = ooc or OocConfig()
+    if ooc.spill_dir and mesh is not None and mesh.n > 1:
+        ooc = dataclasses.replace(
+            ooc, spill_dir=os.path.join(ooc.spill_dir, f"rank{mesh.rank}"))
     dev = resolve_device(device)
     m, k = config.m, config.k
     N = coll.bwt_len
@@ -813,7 +839,7 @@ def build_bwt_ooc(
     sp_pos, sp6 = sp_string(sp_pos_parts, sp.spec_branch_pos, sep, x2p, N, k)
     del sp_pos_parts
     L = sp_pos.shape[0]
-    rank = _sp_ranks_host(sp6, L, ooc.sp_cap, dev, _say)
+    rank = _sp_ranks_host(sp6, L, ooc.sp_cap, dev, _say, mesh)
     _mark("SP rank")
     _say(f"SP string: {L} events")
 
@@ -831,7 +857,7 @@ def build_bwt_ooc(
     if stats is not None:
         stats.update(
             bucket_cap=cap, chunk=C, n_chunks=n_chunks, sp_len=L,
-            n_blue=n_blue, sharded_rank=False,
+            n_blue=n_blue, sharded_rank=L > ooc.sp_cap,
             stage_s={k_: round(v, 3) for k_, v in timings.items()},
             n_buckets=nb, max_bucket_rows=int(sizes_tot.max(initial=0)),
             classifications=n_classified, oversized_buckets=n_oversized,

@@ -191,9 +191,11 @@ def test_import_loads_no_jax():
         "assert not bad, bad\n"
         "assert len(names) >= 25, names\n"
         "new = ['grouped', 'oocore', 'bluesort', 'verify', 'count', 'model',\n"
-        "       'transfer_n', 'io.native']\n"
+        "       'transfer_n', 'io.native', 'parallel.mesh',\n"
+        "       'parallel.collectives', 'parallel.dist', 'parallel.sprank']\n"
         "assert all('debwt_tpu_torch.' + n in names for n in new), names\n"
         "from debwt_tpu_torch import count_kmers, read_kmer_dump\n"
+        "from debwt_tpu_torch import dist_build_bwt, make_mesh\n"
         "print(len(names))\n"
     )
     root = os.path.join(SRC, "..")

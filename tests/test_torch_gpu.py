@@ -298,3 +298,28 @@ def test_count_kmers_on_card_matches_host_count(cuda, m):
     assert kmers.dtype == np.uint64
     assert [int(v) for v in kmers] == sorted(want)
     assert [int(c) for c in counts] == [want[v] for v in sorted(want)]
+
+
+@pytest.mark.parametrize("m", [12, 32])
+def test_dist_one_rank_nccl_on_card_matches_fused(cuda, m):
+    """The multi-device tier as one rank over NCCL on the card: kernel 1
+    once, the fused engine's bytes. The one-rank group it makes is torn
+    down after."""
+    import torch.distributed as tdist
+
+    from debwt_tpu_torch.parallel import dist_build_bwt, make_mesh
+
+    reads = _repeat_reads(m) + ["A" * 40 + "T" * 40 + "C" * 40]
+    coll = SequenceCollection.from_reads(reads)
+    mesh = make_mesh(1)
+    try:
+        assert (mesh.n, mesh.backend, mesh.device.type) == (1, "nccl", "cuda")
+        wk.window_keys.launches = seg_or.seg_scan_or.launches = 0
+        r = dist_build_bwt(coll, PipelineConfig(m=m, check=True), mesh)
+        assert (wk.window_keys.launches, seg_or.seg_scan_or.launches) == (1, 0)
+    finally:
+        tdist.destroy_process_group()
+    f = build_bwt(coll, PipelineConfig(m=m))
+    assert r.packed() == f.packed()
+    np.testing.assert_array_equal(r.sharp_pos, f.sharp_pos)
+    assert r.dollar_pos == f.dollar_pos
