@@ -77,6 +77,21 @@ Phases, in order; any failure ends the script with a non-zero code:
            (sp_cap 2^12: sharded SP ranking; spilled with checkpoints,
            each rank under its own subdirectory; reference hashes); a
            failed rank fails the phase
+  cli      the CLI (`debwt_tpu_torch.cli.main`, as `python -m
+           debwt_tpu_torch.cli` runs it, one process a run, the kernels'
+           launch counts printed after it returns): kernel 1 against its
+           plain version and timed at w = 24 on the 140 Mbp N_cap; the
+           140 Mbp collection written once as FASTA, read by
+           read_collection, by read_fasta (the native parser) and by its
+           NumPy parser, which must agree (timed); then the CLI on it
+           once a route: fused, grouped (--check; DEBWT_SINGLE_MAX_ROWS
+           under its rows and DEBWT_GROUPED_CAP 48,000,000: at least 4
+           groups), out-of-core (--verify over the last 2^22 chars;
+           DEBWT_SINGLE_MAX_ROWS and DEBWT_FORCE_OOC=1), --dist 1, and
+           fused at -k 24; then -k 12 at 4.6 Mbp. Each run must exit 0,
+           name its tier on its route line, launch the kernels as its
+           printed plan says and write files with the reference hashes
+           (ref_mbp140.0, ref_mbp140.0_m24 for -k 24, ref_mbp4.6)
 
 The lines before the last are the `kernels` JSON object and the card's
 name and power limit; the last is {"ok": true, "device": {...}}.
@@ -118,6 +133,9 @@ DIST_MBP = (4.6, 250.0)     # one rank over NCCL, against the reference
 DIST_GLOO_MBP = 40.0        # two ranks on one card, against the fused engine
 OOC_DIST_SP_CAP = 1 << 12   # under 4.6 Mbp's 33,979 SP events: sharded ranking
 RANK_TIMEOUT = 600          # seconds a rank process may take
+CLI_MBP = 140.0             # the cli phase's FASTA: every tier's CLI run
+CLI_SMALL_MBP = 4.6         # -k 12
+CLI_TIMEOUT = 300           # seconds a CLI process may take
 
 
 def say(*a):
@@ -1178,37 +1196,77 @@ def _write_fasta(path, mbp: float):
 
 
 def _dist_cli(dev, ref: dict):
-    """python -m debwt_tpu_torch.cli --dist 1 at 4.6 Mbp: its three
-    files against the reference hashes."""
-    import os
+    """The CLI's --dist 1 at 4.6 Mbp: its three files against the
+    reference hashes, its route and launches as _check_cli_run's."""
     import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="debwt_dist_cli_") as d:
+        fa = Path(d) / "in.fa"
+        _write_fasta(fa, min(DIST_MBP))
+        run = _run_cli(fa, ["--dist", "1", "--timings"], {}, dev, ref)
+    _check_cli_run("dist", run)
+    say(json.dumps({"dist_cli_mbp": min(DIST_MBP), "ranks": 1,
+                    "files_equal_reference": True, "route": run["route"],
+                    "process_s": run["process_s"]}))
+
+
+# the CLI's own entry, as `python -m debwt_tpu_torch.cli` runs it, with
+# the kernels' launch counts of the process printed after it returns
+_CLI_MAIN = """\
+import json, sys
+from debwt_tpu_torch.cli import main
+from debwt_tpu_torch.kernels import seg_or, window_keys
+try:
+    rc = main(sys.argv[1:])
+finally:
+    print("[launches] " + json.dumps({
+        "window_keys": window_keys.window_keys.launches,
+        "seg_scan_or": seg_or.seg_scan_or.launches}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def _run_cli(fa: Path, args: list, env: dict, dev, ref: dict) -> dict:
+    """One CLI process on `fa` with DEBWT_TRACE=1 (the tiers print their
+    plans): it must exit 0 and write the reference's three files. Returns
+    its route lines, the plan lines, the kernels' launch counts, the
+    ingest and build seconds it reports and the process's wall seconds."""
+    import os
+    import re
 
     import numpy as np
 
-    with tempfile.TemporaryDirectory(prefix="debwt_dist_cli_") as d:
-        fa, obj = Path(d) / "in.fa", Path(d) / "out.bwt"
-        _write_fasta(fa, min(DIST_MBP))
-        t0 = time.perf_counter()
-        run = subprocess.run(
-            [sys.executable, "-m", "debwt_tpu_torch.cli", "--dist", "1",
-             "--device", dev.type, "--timings", "-o", str(obj), str(fa)],
-            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=d,
-            capture_output=True, text=True, timeout=RANK_TIMEOUT)
-        dt = time.perf_counter() - t0
-        se = run.stderr
-        if run.returncode != 0:
-            raise AssertionError(f"cli --dist 1 exited {run.returncode}:\n{se}")
-        sharp = np.frombuffer((Path(d) / "out.bwt.#").read_bytes(), "<u8")
-        dollar = int(np.frombuffer((Path(d) / "out.bwt.$").read_bytes(), "<u8")[0])
-        got = (hashlib.sha256(obj.read_bytes()).hexdigest(),
-               hashlib.sha256(sharp.astype(np.int64).tobytes()).hexdigest(),
-               dollar)
-        if got != (ref["obj_sha"], ref["sharp_sha"], ref["dollar"]):
-            raise AssertionError("cli --dist 1: files differ from the reference hashes")
-        route = [ln for ln in se.splitlines() if "route:" in ln]
-    say(json.dumps({"dist_cli_mbp": min(DIST_MBP), "ranks": 1,
-                    "files_equal_reference": True, "route": route,
-                    "process_s": dt}))
+    obj = fa.parent / "out.bwt"
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", _CLI_MAIN, "--device", dev.type, "-o", str(obj),
+         *args, str(fa)],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"), DEBWT_TRACE="1",
+                 **env),
+        cwd=fa.parent, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    se = run.stderr
+    if run.returncode != 0:
+        raise AssertionError(f"cli {' '.join(args)} exited {run.returncode}:\n{se}")
+    sharp = np.frombuffer(Path(f"{obj}.#").read_bytes(), "<u8")
+    dollar = int(np.frombuffer(Path(f"{obj}.$").read_bytes(), "<u8")[0])
+    got = (hashlib.sha256(obj.read_bytes()).hexdigest(),
+           hashlib.sha256(sharp.astype(np.int64).tobytes()).hexdigest(), dollar)
+    if got != (ref["obj_sha"], ref["sharp_sha"], ref["dollar"]):
+        raise AssertionError(f"cli {' '.join(args)}: files differ from the "
+                             "reference hashes")
+    lines = se.splitlines()
+    launches = [ln for ln in lines if ln.startswith("[launches] ")]
+    return {
+        "args": args, "env": env,
+        "route": [ln.split("route: ", 1)[1] for ln in lines if "route: " in ln],
+        "plan": [ln for ln in lines if re.search(r"\] (plan|pass [AB]): ", ln)],
+        "verify": [ln for ln in lines if "LF invertibility" in ln],
+        "launches": json.loads(launches[-1].split(" ", 1)[1]),
+        "ingest_s": float(re.search(r"\(([0-9.]+)s ingest\)", se).group(1)),
+        "build_s": float(re.search(r"BWT of \d+ chars in ([0-9.]+)s", se).group(1)),
+        "process_s": wall,
+    }
 
 
 def _nccl_answer(stderr: str) -> list:
@@ -1310,6 +1368,157 @@ def _dist_two_ranks(dev, rows: dict, ref: dict):
     }))
 
 
+def phase_cli(dev, rows: dict):
+    """The CLI, the entry point a user calls, on every tier: the 140 Mbp
+    collection written once as FASTA, its three readers timed and held
+    to each other, kernel 1 at w = 24 at full size, then one CLI process
+    a route (the routing variables pick the tier), each against the
+    reference hashes with its kernel launches against its plan; then
+    -k 12 at 4.6 Mbp."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from debwt_tpu_torch.io import fasta, read_collection, read_fasta
+    from debwt_tpu_torch.pipeline import rows_needed
+
+    cache = json.loads((ROOT / ".bench_cache.json").read_text())
+    t_phase = time.perf_counter()
+    _cli_kernel_shape(dev, rows)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="debwt_cli_") as d:
+        fa = Path(d) / "in.fa"
+        t0 = time.perf_counter()
+        _write_fasta(fa, CLI_MBP)
+        t_write = time.perf_counter() - t0
+
+        # ---- (a) the three readers ----
+        secs, got = {}, {}
+        t0 = time.perf_counter()
+        coll = read_collection(str(fa))
+        secs["read_collection"] = time.perf_counter() - t0
+        got["read_collection"] = (np.delete(coll.x2, coll.sep),
+                                  np.diff(coll.sep, prepend=-1) - 1, None)
+        t0 = time.perf_counter()
+        reads, names = read_fasta(str(fa))     # the native parser
+        secs["read_fasta_native"] = time.perf_counter() - t0
+        got["read_fasta_native"] = (np.concatenate(reads),
+                                    np.array([r.shape[0] for r in reads]), names)
+        del reads
+        t0 = time.perf_counter()
+        reads, names = fasta._parse_fasta_numpy(fasta._read_raw(str(fa)),
+                                                fasta.NPolicy.REJECT, 0)
+        secs["read_fasta_numpy"] = time.perf_counter() - t0
+        got["read_fasta_numpy"] = (np.concatenate(reads),
+                                   np.array([r.shape[0] for r in reads]), names)
+        del reads
+        codes, lengths, _ = got["read_collection"]
+        for name, (c, n, nm) in got.items():
+            if not (np.array_equal(c, codes) and np.array_equal(n, lengths)):
+                raise AssertionError(f"cli ingest: {name} differs from read_collection")
+        if got["read_fasta_native"][2] != got["read_fasta_numpy"][2]:
+            raise AssertionError("cli ingest: the two read_fasta paths name differently")
+        say(json.dumps({"cli_ingest_mbp": CLI_MBP, "bytes": fa.stat().st_size,
+                        "n_reads": int(lengths.shape[0]), "readers_agree": True,
+                        "seconds": secs, "write_fasta_s": t_write}))
+        bound = str(rows_needed(coll, 32) // 2)   # under the rows at m = 32
+        del got, codes, lengths, coll
+
+        # ---- (b) one CLI process a route ----
+        ref, ref24 = cache[f"ref_mbp{CLI_MBP}"], cache[f"ref_mbp{CLI_MBP}_m24"]
+        runs = {
+            "fused": _run_cli(fa, [], {}, dev, ref),
+            "grouped": _run_cli(fa, ["--check"], {
+                "DEBWT_SINGLE_MAX_ROWS": bound,
+                "DEBWT_GROUPED_CAP": str(GROUPED_CAP)}, dev, ref),
+            "ooc": _run_cli(fa, ["--verify", "--verify-steps", str(VERIFY_STEPS)], {
+                "DEBWT_SINGLE_MAX_ROWS": bound, "DEBWT_FORCE_OOC": "1"}, dev, ref),
+            "dist": _run_cli(fa, ["--dist", "1"], {}, dev, ref),
+            "fused_k24": _run_cli(fa, ["-k", "24"], {}, dev, ref24),
+        }
+    # ---- (c) small m ----
+    with tempfile.TemporaryDirectory(prefix="debwt_cli_") as d:
+        fa = Path(d) / "in.fa"
+        _write_fasta(fa, CLI_SMALL_MBP)
+        runs["fused_k12"] = _run_cli(fa, ["-k", "12"], {}, dev,
+                                     cache[f"ref_mbp{CLI_SMALL_MBP}"])
+    for tier, run in runs.items():
+        _check_cli_run(tier, run)
+        for name, n in run["launches"].items():
+            rows[name].setdefault("launches_cli", {})[tier] = n
+        say(json.dumps({"cli_tier": tier, "mbp": CLI_SMALL_MBP
+                        if tier == "fused_k12" else CLI_MBP,
+                        "files_equal_reference": True, **run}))
+    say(f"[cli] phase {time.perf_counter() - t_phase:.1f}s")
+
+
+def _check_cli_run(tier: str, run: dict):
+    """The route line names the tier, and the launches of both kernels
+    follow the plan the tier printed."""
+    import re
+
+    route = {"fused": "single-device fused engine",
+             "grouped": "grouped device-resident tier",
+             "ooc": "out-of-core chunked tier",
+             "dist": "distributed over 1 devices"}[tier.split("_")[0]]
+    if not (len(run["route"]) == 1 and run["route"][0].startswith(route)):
+        raise AssertionError(f"cli {tier}: route {run['route']}")
+    plan = " ".join(run["plan"])
+    if tier == "grouped":
+        (G, n_chunks), = [tuple(map(int, m)) for m in re.findall(
+            r"plan: G=(\d+) groups, cap=\d+, chunk=\d+ x (\d+)", plan)]
+        if G < 4:
+            raise AssertionError(f"cli grouped: {G} groups, want at least 4")
+        want = {"window_keys": G * n_chunks, "seg_scan_or": G * n_chunks + 3 * G}
+    elif tier == "ooc":
+        n_chunks = int(re.search(r"pass A: (\d+) chunks", plan).group(1))
+        n_cls = int(re.search(r"pass B: \d+ buckets, (\d+) device", plan).group(1))
+        want = {"window_keys": n_chunks, "seg_scan_or": 3 * n_cls}
+        if run["verify"] != ["[debwt-torch] LF invertibility: OK"]:
+            raise AssertionError(f"cli ooc: {run['verify']}")
+    elif tier == "dist":
+        want = {"window_keys": 1, "seg_scan_or": 0}
+    else:
+        want = EXPECTED_LAUNCHES
+    if run["launches"] != want:
+        raise AssertionError(f"cli {tier}: launches {run['launches']}, plan {want}")
+
+
+def _cli_kernel_shape(dev, rows: dict):
+    """Kernel 1's packed entry at the width and full size of the -k 24
+    build (w = 24 on the 140 Mbp N_cap): against its plain version, then
+    timed beside the bound and the plain version's time."""
+    import torch
+
+    from debwt_tpu_torch import ops
+    from debwt_tpu_torch.kernels.window_keys import (
+        window_keys_packed, window_keys_packed_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    wk, w, n_out = Parity("window_keys"), 24, MAIN_N_CAP
+    x2w = ops.pack_2bit_words(torch.randint(0, 4, (n_out + w - 1,), generator=gen,
+                                            device=dev, dtype=torch.uint8))
+    what = f"packed words, n_out {n_out}, w {w} (the -k 24 build)"
+    wk.check(window_keys_packed(x2w, w, n_out),
+             window_keys_packed_plain(x2w, w, n_out), what)
+    b_ms, b_by = bound_ms((n_out + w - 1) / 4 + 8 * n_out, 3 * n_out)
+    shape = dict(shape=what,
+                 ms=cuda_ms(lambda: window_keys_packed(x2w, w, n_out), reps=20),
+                 plain_ms=cuda_ms(lambda: window_keys_packed_plain(x2w, w, n_out),
+                                  reps=3, warm=1),
+                 bound_ms=b_ms, bound_by=b_by)
+    del x2w
+    rows["window_keys"]["cli_shapes"] = [shape]
+    rows["window_keys"]["max_abs_err"] = max(rows["window_keys"]["max_abs_err"],
+                                             wk.max_abs_err)
+    say(f"[kernels] window_keys {what}: {shape['ms']:.4f} ms (bound "
+        f"{b_ms:.4f} ms by {b_by}, plain {shape['plain_ms']:.4f} ms); "
+        f"{wk.cases} case equal")
+
+
 def profile_build(fn, mbp):
     """fn() once under torch.profiler: device time by kernel name and
     the device's busy share of fn's wall time."""
@@ -1370,6 +1579,7 @@ def main() -> int:
     phase_verify_count(dev)
     phase_ooc(dev, rows, *phase_grouped(dev, rows))
     phase_dist(dev, rows)
+    phase_cli(dev, rows)
     say(f"[done] {time.perf_counter() - t_all:.1f}s")
     say(json.dumps({"kernels": list(rows.values())}))
     say(card)

@@ -22,14 +22,28 @@ port:
            and the text is over the single-device bound. The ooc and
            grouped tiers get that group's mesh for sharded SP ranking.
 
-With no process group joined, every route is that of one device.
+With no process group joined, every route is that of one device. In a
+joined group of more than one rank, every route builds on the rank's
+own device (parallel.mesh's choice: LOCAL_RANK, else the rank, modulo
+the visible cards), the fused engine's too.
+
+Three environment variables steer the route, read on every call as the
+JAX package reads them; none can take a tier past what the card holds:
+
+  DEBWT_SINGLE_MAX_ROWS  the fused tier's row bound is the smaller of
+                         this and single_rows_bound(device)
+  DEBWT_FORCE_OOC=1      skip the grouped tier: what the fused and dist
+                         tiers do not take goes out of core
+  DEBWT_GROUPED_CAP      the grouped tier's rows a group (grouped.py)
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import torch
+import torch.distributed as tdist
 
 from debwt_tpu_torch.pipeline import (
     MAX_ROWS, BwtResult, build_bwt, resolve_device, rows_needed,
@@ -88,7 +102,17 @@ def build(
     the out-of-core tier, whichever builds. The fused engine and the
     multi-device tier read neither."""
     config = config or PipelineConfig()
-    dev = resolve_device(device)
+    world = tdist.get_world_size() if tdist.is_initialized() else 1
+    if world > 1:
+        # a rank of a joined group builds on its own card on every
+        # route (make_mesh's choice, made current as make_mesh does)
+        from debwt_tpu_torch.parallel.mesh import _rank_device
+
+        dev = _rank_device(device, tdist.get_rank())
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+    else:
+        dev = resolve_device(device)
 
     def _say(msg):
         if verbose:
@@ -101,13 +125,11 @@ def build(
         return dist_build_bwt(coll, config, make_mesh(n_devices, device=dev))
 
     rows, bound = rows_needed(coll, config.m), single_rows_bound(dev)
-    if rows < bound:
+    cap = os.environ.get("DEBWT_SINGLE_MAX_ROWS")
+    if rows < (bound if cap is None else min(bound, int(cap))):
         _say("single-device fused engine")
         return build_bwt(coll, config, device=dev)
 
-    import torch.distributed as tdist
-
-    world = tdist.get_world_size() if tdist.is_initialized() else 1
     sharded = {}     # the mesh for sharded SP ranking, where there is one
     if world > 1:
         from debwt_tpu_torch.parallel import dist_build_bwt, make_mesh
@@ -123,7 +145,7 @@ def build(
         MAX_N, GroupOverflow, build_bwt_grouped,
     )
 
-    if coll.bwt_len < MAX_N:
+    if coll.bwt_len < MAX_N and os.environ.get("DEBWT_FORCE_OOC") != "1":
         _say(f"grouped device-resident tier (N={coll.bwt_len}, one device)")
         try:
             return build_bwt_grouped(coll, config, gcfg, stats, device=dev,

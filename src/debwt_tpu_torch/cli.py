@@ -16,7 +16,11 @@ unless --device cpu is given.
 rank: start N processes with DEBWT_COORDINATOR (host:port of rank 0),
 DEBWT_NUM_PROCESSES (N) and DEBWT_PROCESS_ID (0 .. N-1) set; they join
 one process group (NCCL on cards, gloo with --device cpu) before the
-build. Rank 0 alone checks and writes the output and prints.
+build. Rank 0 alone writes the output and prints; with --verify every
+rank walks its own copy of the result and exits 2 if it fails.
+
+The routing variables of api.py (DEBWT_SINGLE_MAX_ROWS, DEBWT_FORCE_OOC,
+DEBWT_GROUPED_CAP) steer the tier a build takes.
 """
 
 from __future__ import annotations
@@ -121,7 +125,7 @@ def _run(args, rank0: bool) -> int:
         write_bwt(result, args.obj)
     say(f"[debwt-torch] wrote {args.obj} (+ .#, .$)")
 
-    if args.verify and rank0:
+    if args.verify:
         from debwt_tpu_torch.verify import lf_verify
 
         ok = lf_verify(result, coll, max_steps=args.verify_steps)

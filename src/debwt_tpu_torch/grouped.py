@@ -117,12 +117,23 @@ class GroupedConfig:
 
     cap:     rows per group buffer; with the special rows of a group it
              is what the classification sorts at once. None: what the
-             device holds (default_cap).
+             device holds (default_cap), or the DEBWT_GROUPED_CAP
+             environment variable (read per build) where that is less.
     chunk:   text positions per selection step inside the group scan.
     """
 
     cap: int | None = None
     chunk: int = 1 << 27
+
+    def resolved_cap(self, dev: torch.device, n: int, chunk: int) -> int:
+        """The cap a build of n positions in chunks of `chunk` starts
+        from on `dev`: an explicit cap as given, else default_cap, which
+        DEBWT_GROUPED_CAP can lower but never raise."""
+        if self.cap is not None:
+            return self.cap
+        cap = default_cap(dev, n, chunk)
+        env = os.environ.get("DEBWT_GROUPED_CAP")
+        return cap if env is None else min(cap, int(env))
 
 
 def default_cap(dev: torch.device, n: int, chunk: int) -> int:
@@ -452,7 +463,7 @@ def build_bwt_grouped(
     n_chunks = -(-N // C)
     E = C + m + 15
     E += (-E) % 16
-    cap = gcfg.cap if gcfg.cap is not None else default_cap(dev, N, C)
+    cap = gcfg.resolved_cap(dev, N, C)
     cap -= cap % 4
 
     # packed text with a 16-char T prologue (predecessor reads at chunk

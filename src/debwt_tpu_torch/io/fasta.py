@@ -1,5 +1,5 @@
 """FASTA/FASTQ ingest with N-policy (a copy of the JAX package's
-io/fasta.py streaming reader, without its native parser).
+io/fasta.py).
 
 The reference parses with the vendored kseq.h (src/kseq.h) and demands
 N-free input (README "shouldn't contain any uncertain char"), shipping
@@ -15,14 +15,20 @@ reader:
                    codes are still rejected
 
 Parsing is vectorized NumPy over the raw bytes (no per-line Python
-loop).
+loop); read_fasta parses FASTA under reject and to-g in the native
+parser (io/native.py, csrc/fasta_parser.cpp).
+
+A record whose header holds no name is called read<record index> on
+every path. The JAX package's native path numbers such a record by its
+line instead, and both its paths raise IndexError on a header of
+blanks only.
 """
 
 from __future__ import annotations
 
 import enum
 import gzip
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -43,6 +49,36 @@ _CODE = np.full(256, 255, dtype=np.uint8)
 for i, cs in enumerate("ACGT"):
     _CODE[ord(cs)] = i
     _CODE[ord(cs.lower())] = i
+
+
+def _read_raw(path: str) -> bytes:
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "rb") as f:
+        return f.read()
+
+
+def read_fasta(
+    path: str,
+    n_policy: NPolicy | str = NPolicy.REJECT,
+    seed: int = 0,
+) -> Tuple[List[np.ndarray], List[str]]:
+    """Parse FASTA/FASTQ (optionally .gz) into per-read uint8 code
+    arrays (0..3) plus names, from the whole file at once. FASTA goes
+    through the native parser (io.native.parse_fasta; the random policy
+    runs in NumPy there), FASTQ through NumPy. read_collection streams
+    instead, for inputs too large to hold twice."""
+    if isinstance(n_policy, str):
+        n_policy = NPolicy(n_policy)
+    raw = _read_raw(path)
+    if not raw:
+        raise ValueError(f"empty input: {path}")
+    if raw[:1] == b"@":
+        return _parse_fastq(raw, n_policy, seed)
+    if raw[:1] != b">":
+        raise ValueError(f"{path}: not FASTA/FASTQ (starts with {raw[:1]!r})")
+    from debwt_tpu_torch.io import native
+
+    return native.parse_fasta(raw, n_policy.value, seed)
 
 
 def read_collection(
@@ -112,8 +148,7 @@ def _stream_reads(path, n_policy, seed, chunk_bytes, with_names):
             lines_seen += starts.shape[0]
         if with_names:
             for s0, e0 in zip(starts[is_name], ends[is_name]):
-                tok = region[s0 + 1 : e0].split()
-                names.append(tok[0].decode() if tok else f"read{len(names)}")
+                names.append(_name(region[s0 + 1 : e0], len(names)))
         keep = _span_mask(buf, starts[is_body], ends[is_body])
         # kept length per line (line body minus CRs) -> record starts
         # by a LINE-level cumsum; no per-byte int64 scan
@@ -165,6 +200,54 @@ def _stream_reads(path, n_policy, seed, chunk_bytes, with_names):
         raise ValueError(f"no records parsed from {path}")
     lengths = np.diff(np.concatenate([starts_all, [codes.shape[0]]]))
     return codes, lengths, names
+
+
+def _name(header: bytes, j: int) -> str:
+    """The first word of a header line's text, else read<j>."""
+    tok = header.split()
+    return tok[0].decode() if tok else f"read{j}"
+
+
+def _parse_fasta_numpy(raw: bytes, n_policy: NPolicy, seed: int):
+    """(reads, names) of FASTA bytes in NumPy: the plain version of the
+    native parser, and the path of the random policy."""
+    buf = np.frombuffer(raw, dtype=np.uint8)
+    starts, ends = _line_table(buf)
+    is_hdr = buf[starts] == ord(">")
+    reads = _cut_reads(buf, starts[~is_hdr], ends[~is_hdr], starts[is_hdr],
+                       n_policy, seed)
+    names = [_name(raw[s0 + 1 : e0], j) for j, (s0, e0) in enumerate(
+        zip(starts[is_hdr].tolist(), ends[is_hdr].tolist()))]
+    return reads, names
+
+
+def _parse_fastq(raw: bytes, n_policy: NPolicy, seed: int):
+    """(reads, names) of FASTQ bytes: 4-line records (the reference reads
+    these via kseq too), the second line of each the sequence."""
+    buf = np.frombuffer(raw, dtype=np.uint8)
+    starts, ends = _line_table(buf)
+    phase = np.arange(starts.shape[0]) % 4
+    is_seq = phase == 1
+    if not is_seq.any():
+        raise ValueError("no FASTQ records parsed")
+    reads = _cut_reads(buf, starts[is_seq], ends[is_seq], starts[is_seq],
+                       n_policy, seed)
+    hdr_s, hdr_e = starts[phase == 0], ends[phase == 0]
+    names = [_name(raw[hdr_s[j] + 1 : hdr_e[j]], j) for j in range(len(reads))]
+    return reads, names
+
+
+def _cut_reads(buf, body_starts, body_ends, rec_starts, n_policy, seed):
+    """The sequence lines [body_starts, body_ends) of buf, CRs dropped,
+    encoded in one pass and cut into one code array a record, a record
+    starting at the first sequence byte at or after rec_starts[j]."""
+    keep = _span_mask(buf, body_starts, body_ends)
+    codes_all = _encode(buf[keep], n_policy, seed)
+    excl = np.zeros(buf.shape[0] + 1, dtype=np.int64)
+    np.cumsum(keep, out=excl[1:])
+    bounds = np.concatenate([excl[rec_starts], [codes_all.shape[0]]])
+    return [codes_all[bounds[j] : bounds[j + 1]]
+            for j in range(bounds.shape[0] - 1)]
 
 
 def _line_table(buf: np.ndarray):

@@ -1,14 +1,15 @@
 """ctypes bindings for the native host helpers: the LF walker
-(csrc/lf_walk.cpp) and the out-of-core tier's pass-A binner
-(csrc/ooc_binner.cpp).
+(csrc/lf_walk.cpp), the out-of-core tier's pass-A binner
+(csrc/ooc_binner.cpp) and the FASTA parser (csrc/fasta_parser.cpp).
 
-The counterpart of the walker and binner entries of the JAX package's
-io/native.py. Each library is built with the host C++ compiler at first
-use (kernels/_build.py) into csrc/build/. A helper that does not build
-raises: verify.py never turns into its Python loop, nor oocore into its
-NumPy binner, on its own. Those are the versions the tests hold the
-helpers against; they select the walk loop by replacing `has_lf_walk`
-and call the NumPy binner, oocore._bin_rows_numpy, directly.
+The counterpart of the JAX package's io/native.py. Each library is
+built with the host C++ compiler at first use (kernels/_build.py) into
+csrc/build/. A helper that does not build raises: verify.py never turns
+into its Python loop, nor oocore into its NumPy binner, nor read_fasta
+into its NumPy parser, on its own. Those are the versions the tests
+hold the helpers against; they select the walk loop by replacing
+`has_lf_walk` and call the NumPy binner, oocore._bin_rows_numpy, and
+the NumPy parser, io.fasta._parse_fasta_numpy, directly.
 """
 
 from __future__ import annotations
@@ -131,3 +132,63 @@ def ooc_bin(key, c0: int, sep, x2p, N: int, splitters, split_c: int,
     if total != int(counts.sum()):
         raise RuntimeError("ooc_bin: row count and bucket counts disagree")
     return out_key[:total], out_k16[:total], out_pos[:total], counts
+
+
+def _parser():
+    lib = _build.load("fasta_parser")
+    if lib.debwt_parse_fasta.argtypes is None:
+        lib.debwt_parse_fasta.restype = ctypes.c_int
+        lib.debwt_parse_fasta.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+    return lib
+
+
+def parse_fasta(raw: bytes, policy: str, seed: int):
+    """(reads, names) of the FASTA bytes `raw`, as io.read_fasta returns
+    them: reads are uint8 code arrays (views of one buffer), and a record
+    whose header holds no name is called read<record index>. The
+    policies reject and to-g run in the native parser; random runs in
+    NumPy (io.fasta._parse_fasta_numpy) with `seed`, so that its
+    substitution stream is the same on every path."""
+    from debwt_tpu_torch.io.fasta import NPolicy, _name, _parse_fasta_numpy
+
+    if NPolicy(policy) is NPolicy.RANDOM:
+        return _parse_fasta_numpy(raw, NPolicy.RANDOM, seed)
+    buf = np.frombuffer(raw, dtype=np.uint8)
+    if buf.shape[0] == 0 or buf[0] != ord(">"):
+        raise ValueError("parse_fasta: the input must start with '>'")
+    # every '>' byte, a sequence's too, bounds the record count
+    n_cap = int(np.count_nonzero(buf == ord(">"))) + 1
+    out_codes = np.empty(buf.shape[0], dtype=np.uint8)
+    out_bounds = np.empty(n_cap + 1, dtype=np.int64)
+    n_records, total, err_pos = (ctypes.c_int64(0) for _ in range(3))
+    rc = _parser().debwt_parse_fasta(
+        buf.ctypes.data, buf.shape[0], 0 if policy == "reject" else 2,
+        out_codes.ctypes.data, out_bounds.ctypes.data, n_cap,
+        ctypes.byref(n_records), ctypes.byref(total), ctypes.byref(err_pos),
+    )
+    if rc == -2:
+        ch = chr(raw[err_pos.value])
+        raise ValueError(
+            f"non-ACGT character {ch!r}; rerun with an N-policy "
+            "('random' for the transferN behavior, 'to-g' for the "
+            "mySort quirk)"
+        )
+    if rc != 0:
+        raise RuntimeError(f"native FASTA parse failed (rc={rc})")
+    nr = n_records.value
+    reads = [out_codes[out_bounds[j] : out_bounds[j + 1]] for j in range(nr)]
+    # the header lines, the lines that start with '>', name the records
+    heads = np.nonzero(buf == ord(">"))[0]
+    heads = heads[(heads == 0) | (buf[heads - 1] == ord("\n"))].tolist()
+    if len(heads) != nr:
+        raise RuntimeError("native FASTA parse: header and record counts differ")
+    names = []
+    for j, h in enumerate(heads):
+        e = raw.find(b"\n", h)
+        names.append(_name(raw[h + 1 : e if e >= 0 else len(raw)], j))
+    return reads, names

@@ -9,7 +9,8 @@ kept beside each library as `.log`. `build_all` starts one compiler per
 source at once and waits for all of them.
 
 A name in HOST_SOURCES is a host helper, `csrc/<name>.cpp` (the LF
-walker of verify.py, the out-of-core tier's pass-A binner): the same
+walker of verify.py, the out-of-core tier's pass-A binner, the FASTA
+parser of io.read_fasta): the same
 scheme with the host C++ compiler (`-pthread`: the binner starts
 threads), so it also builds where there is no nvcc. A source that does
 not build raises; nothing steps in for it.
@@ -31,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("window_keys", "seg_or")
-HOST_SOURCES = ("lf_walk", "ooc_binner")
+HOST_SOURCES = ("lf_walk", "ooc_binner", "fasta_parser")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

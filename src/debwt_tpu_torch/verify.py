@@ -29,6 +29,17 @@ import numpy as np
 _FAST_N = 1 << 27
 
 
+def build_occ(bwt6: np.ndarray, sample: int = 32):
+    """Sampled occurrence table over ACGT (separators excluded from the
+    counts, matching src/LFsearch.c:207-231 which skips separator Ts).
+    Returns (occ[ceil(N/sample)+1, 4], C int64[4]); occ[j] counts each
+    base in bwt6[: j*sample]. Built in bounded blocks, as _build_occ6."""
+    occ6, counts = _build_occ6(bwt6, sample)
+    C = np.zeros(4, dtype=np.int64)
+    C[1:] = np.cumsum(counts[:4])[:-1]
+    return occ6[:, :4], C
+
+
 def _build_occ6(bwt6: np.ndarray, sample: int):
     """occ6[j, c] = #occurrences of c in bwt6[: j*sample], over the
     6-letter alphabet (A C G T # $), with the six totals beside it.

@@ -196,6 +196,9 @@ def test_import_loads_no_jax():
         "assert all('debwt_tpu_torch.' + n in names for n in new), names\n"
         "from debwt_tpu_torch import count_kmers, read_kmer_dump\n"
         "from debwt_tpu_torch import dist_build_bwt, make_mesh\n"
+        "from debwt_tpu_torch.io import read_fasta\n"
+        "from debwt_tpu_torch.io.native import parse_fasta\n"
+        "from debwt_tpu_torch.verify import build_occ\n"
         "print(len(names))\n"
     )
     root = os.path.join(SRC, "..")

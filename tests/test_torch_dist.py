@@ -51,7 +51,12 @@ CASES = {
        dict(name="api_n", kind="api", reads=API_READS, n_devices=2),
        dict(name="api_world", kind="api", reads=API_READS,
             single_rows=rows_needed(SequenceCollection.from_reads(API_READS), 32)),
-       dict(name="guard", kind="guard", bwt_len=2**33, expect_error=True)],
+       dict(name="guard", kind="guard", bwt_len=2**33, expect_error=True),
+       dict(name="rank_card", kind="rank_card", reads=API_READS, cards=4,
+            local_offset=2),
+       dict(name="cli_verify", kind="cli", reads=CLI_READS, args=["--verify"]),
+       dict(name="cli_verify_tampered", kind="cli", reads=CLI_READS,
+            args=["--dist", "2", "--verify"], tamper=True)],
     3: [dict(name="rand", kind="build", reads=rand_reads(3))],
 }
 
@@ -147,6 +152,30 @@ def test_api_routes_a_joined_group_over_the_bound(runs):
     got = runs[2].results()["api_world"]
     every_rank(got, golden_bwt(SequenceCollection.from_reads(API_READS)))
     assert all(int(g["dist_calls"]) == 1 for g in got)
+
+
+def test_api_builds_on_the_rank_card(runs):
+    """In a joined group, api.build with no device named sizes its bound
+    by and builds on cuda:LOCAL_RANK (LOCAL_RANK = rank + 2 of 4 faked
+    cards), made the current device; the bytes are golden's."""
+    got = runs[2].results()["rank_card"]
+    every_rank(got, golden_bwt(SequenceCollection.from_reads(API_READS)))
+    for rank, g in enumerate(got):
+        card = [f"cuda:{rank + 2}"]
+        assert (g["bound"].tolist(), g["build"].tolist(),
+                g["set_device"].tolist()) == (card, card, card)
+
+
+def test_cli_verify_runs_on_every_rank(runs):
+    """--verify walks every rank's own copy: 0 on both ranks for a good
+    result, 2 on both for a tampered one (the JAX CLI's behaviour);
+    rank 0 alone prints."""
+    ok, bad = (runs[2].results()[k] for k in ("cli_verify", "cli_verify_tampered"))
+    assert [int(g["rc"]) for g in ok] == [0, 0]
+    assert [int(g["rc"]) for g in bad] == [2, 2]
+    assert "LF invertibility: OK" in str(ok[0]["stderr"])
+    assert "LF invertibility: FAILED" in str(bad[0]["stderr"])
+    assert str(ok[1]["stderr"]) == str(bad[1]["stderr"]) == ""
 
 
 def test_per_shard_guard(runs):

@@ -323,3 +323,31 @@ def test_dist_one_rank_nccl_on_card_matches_fused(cuda, m):
     assert r.packed() == f.packed()
     np.testing.assert_array_equal(r.sharp_pos, f.sharp_pos)
     assert r.dollar_pos == f.dollar_pos
+
+
+def test_cli_grouped_route_on_card(cuda, monkeypatch, tmp_path, capsys):
+    """The CLI on the card, routed to the grouped tier by the variables
+    (DEBWT_SINGLE_MAX_ROWS under the rows, DEBWT_GROUPED_CAP 512): the
+    route line names it, the kernels launch, the files are golden's."""
+    from debwt_tpu_torch.cli import main as cli_main
+    from debwt_tpu_torch.io import read_bwt
+
+    reads = _repeat_reads(7)
+    fa = tmp_path / "in.fa"
+    fa.write_text("".join(f">r{i}\n{r}\n" for i, r in enumerate(reads)))
+    monkeypatch.setenv("DEBWT_SINGLE_MAX_ROWS", "64")
+    monkeypatch.setenv("DEBWT_GROUPED_CAP", "512")
+    wk.window_keys.launches = seg_or.seg_scan_or.launches = 0
+    obj = tmp_path / "out.bwt"
+    assert cli_main(["-o", str(obj), "--check", "--verify", str(fa)]) == 0
+    err = capsys.readouterr().err
+    assert "route: grouped device-resident tier" in err
+    assert "LF invertibility: OK" in err
+    # 5 groups of one chunk: kernel 1 once a group, kernel 2 four times
+    assert (wk.window_keys.launches, seg_or.seg_scan_or.launches) == (5, 20)
+    coll = SequenceCollection.from_reads(reads)
+    g = golden_bwt(coll)
+    assert obj.read_bytes() == g.packed()
+    bwt6, sharp, dollar = read_bwt(str(obj), coll.bwt_len)
+    np.testing.assert_array_equal(sharp, g.sharp_pos)
+    assert dollar == g.dollar_pos

@@ -76,7 +76,7 @@ def test_lf_verify_on_a_built_result():
     assert verify.lf_verify(r, coll)
 
 
-@pytest.mark.parametrize("sample", [4, 32])
+@pytest.mark.parametrize("sample", [1, 4, 32])
 def test_occ_tables_match_jax(sample):
     g = golden_bwt(_coll(3, n=3, size=300))
     occ6, counts = verify._build_occ6(g.bwt6, sample)
@@ -85,9 +85,12 @@ def test_occ_tables_match_jax(sample):
     np.testing.assert_array_equal(occ6, jocc6)
     np.testing.assert_array_equal(counts, jcounts)
     np.testing.assert_array_equal(counts, np.bincount(g.bwt6, minlength=6))
-    # the JAX package's ACGT view of the same table
-    jocc, _ = jverify.build_occ(g.bwt6, sample)
-    np.testing.assert_array_equal(occ6[:, :4], jocc)
+    # the ACGT view of the same table and the ACGT offsets
+    occ, C = verify.build_occ(g.bwt6, sample)
+    jocc, jC = jverify.build_occ(g.bwt6, sample)
+    assert (occ.dtype, occ.shape, C.dtype) == (jocc.dtype, jocc.shape, jC.dtype)
+    np.testing.assert_array_equal(occ, jocc)
+    np.testing.assert_array_equal(C, jC)
 
 
 def test_native_walker_builds_into_the_build_directory():

@@ -244,6 +244,77 @@ def case_guard(mesh, case):
     return {}
 
 
+def case_rank_card(mesh, case):
+    """api.build with no device named, on a host faked to have
+    case["cards"] cards and LOCAL_RANK = rank + case["local_offset"]:
+    the devices single_rows_bound, the fused build and set_device got.
+    The build itself runs on this rank's own device."""
+    import torch
+
+    from debwt_tpu_torch import api
+
+    os.environ["LOCAL_RANK"] = str(mesh.rank + case["local_offset"])
+    seen = {"bound": [], "build": [], "set_device": []}
+    real_build = api.build_bwt
+    fakes = [
+        (torch.cuda, "is_available", lambda: True),
+        (torch.cuda, "device_count", lambda: case["cards"]),
+        (torch.cuda, "set_device", seen["set_device"].append),
+        (api, "single_rows_bound",
+         lambda dev: seen["bound"].append(dev) or api.MAX_ROWS),
+        (api, "build_bwt", lambda coll, config, device: seen["build"].append(
+            device) or real_build(coll, config, device=mesh.device)),
+    ]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in fakes]
+    for obj, name, fake in fakes:
+        setattr(obj, name, fake)
+    try:
+        res = api.build(_coll(case), _config(case))
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+        del os.environ["LOCAL_RANK"]
+    return dict(_result(res),
+                **{k: np.array([str(d) for d in v]) for k, v in seen.items()})
+
+
+def case_cli(mesh, case):
+    """The CLI's main() in the joined group on a FASTA of the case's
+    reads, with case["args"]; with case["tamper"], api.build's result
+    has one character flipped on every rank. Returns the exit code and
+    what the CLI wrote to stderr."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    from debwt_tpu_torch import api
+    from debwt_tpu_torch.cli import main as cli_main
+
+    real = api.build
+
+    def tampered(*a, **kw):
+        r = real(*a, **kw)
+        bad = r.bwt6.copy()
+        bad[int(np.nonzero(bad < 4)[0][9])] ^= 1
+        return dataclasses.replace(r, packed_words=None, _bwt6=bad)
+
+    err = io.StringIO()
+    with tempfile.TemporaryDirectory() as d:
+        fa = os.path.join(d, "in.fa")
+        with open(fa, "w") as f:
+            f.write("".join(f">r{i}\n{r}\n" for i, r in enumerate(case["reads"])))
+        if case.get("tamper"):
+            api.build = tampered
+        try:
+            with contextlib.redirect_stderr(err):
+                rc = cli_main(["-o", os.path.join(d, "out.bwt"), "--device",
+                               str(mesh.device.type), *case["args"], fa])
+        finally:
+            api.build = real
+    return {"rc": np.int64(rc), "stderr": np.str_(err.getvalue())}
+
+
 def case_probe(mesh, case):
     """One all_reduce of ones on the rank's device."""
     import torch
@@ -254,7 +325,8 @@ def case_probe(mesh, case):
 
 
 CASES = {"build": case_build, "sprank": case_sprank, "ooc": case_ooc,
-         "api": case_api, "guard": case_guard, "probe": case_probe}
+         "api": case_api, "guard": case_guard, "probe": case_probe,
+         "rank_card": case_rank_card, "cli": case_cli}
 
 
 def main(argv) -> int:
