@@ -55,13 +55,29 @@ Phases, in order; any failure ends the script with a non-zero code:
            spilled to a temporary directory with checkpoints, interrupted
            at bucket 32 of 64 and resumed in-process, must give the
            reference hashes with no kernel-1 launch on the resume and no
-           bucket file left; launches against the plan (kernel 1 once a
-           chunk, kernel 2 three times a device classification); the
-           plan, stage times, Mbp/s, peak device bytes, the host's peak
-           RSS and the peak spill bytes; then both kernels against their
+           file left in the directory; launches against the plan (kernel
+           1 once a chunk, kernel 2 three times a device classification);
+           the plan, stage times, Mbp/s, peak device bytes, the host's
+           peak RSS and the peak spill bytes; then both kernels against their
            plain versions and timed at this tier's shapes (window_keys on
            one chunk's packed words at w = 31 and 11, the classification
            scans at the largest bucket's rows)
+  genome   the grouped tier at genome scale: tools/bench_ooc.py's
+           synth_concat collection at 3000 Mbp (N = 3,000,000,004, so
+           positions pass 2^31; synthesis timed) through api.build with
+           the default cap and check=True; it must announce and take the
+           grouped tier, have .bench_cache.json grouped_mbp3000.0's
+           sp_len and n_blue (the JAX package's grouped and out-of-core
+           tiers agreed on them), one '$' at dollar_pos and n_reads - 1
+           '#', launches against the plan, a classification of at least
+           2^29 - 2^20 rows (the default cap at the scan bound), and
+           pass the 2^22-step LF walk on the sampled-occ path; the files
+           written by io.write_bwt to a temporary directory and read back
+           (the `.#` and `.$` positions, the object's sha256); the plan,
+           seconds, Mbp/s, stage times, peak device bytes a group row,
+           the host's peak RSS and the port's own hashes; then
+           seg_scan_or at this build's classification rows, both
+           directions, against its plain version and timed
   dist     the multi-device tier (parallel.dist_build_bwt), one process a
            rank: through api.build(n_devices=1), one rank over NCCL at 4.6
            and 250 Mbp against the reference hashes (seconds, Mbp/s, stage
@@ -132,6 +148,8 @@ VERIFY_STEPS = 1 << 22
 DIST_MBP = (4.6, 250.0)     # one rank over NCCL, against the reference
 DIST_GLOO_MBP = 40.0        # two ranks on one card, against the fused engine
 OOC_DIST_SP_CAP = 1 << 12   # under 4.6 Mbp's 33,979 SP events: sharded ranking
+GENOME_MBP = 3000.0         # synth_concat: .bench_cache.json grouped_mbp3000.0
+GENOME_MIN_R = (1 << 29) - (1 << 20)   # its classification reaches the scan bound
 RANK_TIMEOUT = 600          # seconds a rank process may take
 CLI_MBP = 140.0             # the cli phase's FASTA: every tier's CLI run
 CLI_SMALL_MBP = 4.6         # -k 12
@@ -1016,7 +1034,7 @@ def phase_ooc(dev, rows: dict, coll, hashes):
             torch.cuda.synchronize()
             t_resume = time.perf_counter() - t0
             counts = _read_counts()
-            left = sorted(f for f in os.listdir(d) if f.startswith("bk"))
+            left = sorted(os.listdir(d))
         finally:
             oocore._classify_bucket = real
         _check_ooc_counts(stats, counts, f"ooc {OOC_SPILL_MBP} Mbp resume",
@@ -1026,7 +1044,7 @@ def phase_ooc(dev, rows: dict, coll, hashes):
                 f"ooc {OOC_SPILL_MBP} Mbp resumed: differs from the reference hashes"
             )
         if left:
-            raise AssertionError(f"ooc spill: bucket files left: {left[:5]}")
+            raise AssertionError(f"ooc spill: files left: {left[:5]}")
         if stats["classifications"] != seen["calls"] - crash_at:
             raise AssertionError("ooc spill: the resume redid finished buckets")
         for name, n in counts.items():
@@ -1038,7 +1056,7 @@ def phase_ooc(dev, rows: dict, coll, hashes):
             "stage_s_resume": stats["stage_s"],
             "spill_peak_bytes": seen["spill_peak"],
             "spill_peak_apparent_bytes": seen["spill_peak_apparent"],
-            "bucket_files_left": 0,
+            "files_left": 0,
         }))
         del r
     del coll
@@ -1087,6 +1105,155 @@ def _ooc_kernel_shapes(dev, rows: dict, R_bucket: int):
                 f"(bound {g['bound_ms']:.4f} ms by {g['bound_by']}, "
                 f"plain {g['plain_ms']:.4f} ms)")
         say(f"[kernels] {name} at the ooc shapes: {par.cases} cases equal")
+    torch.cuda.empty_cache()
+
+
+def phase_genome(dev, rows: dict):
+    """The grouped tier at genome scale: tools/bench_ooc.py's
+    synth_concat collection at 3000 Mbp (N = 3,000,000,004, so positions
+    run past 2^31) through api.build with the default cap, held to the
+    SP length and blue count of .bench_cache.json's grouped_mbp3000.0
+    row (the JAX package's grouped and out-of-core tiers agreed on them),
+    one '$' and n_reads - 1 '#', a bounded LF walk, and files written and
+    read back; then seg_scan_or at this build's classification rows,
+    which must reach the scan bound."""
+    import contextlib
+    import io
+    import os
+    import resource
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from debwt_tpu_torch import api, grouped, oocore, special
+    from debwt_tpu_torch.io import read_sidecars, write_bwt
+    from debwt_tpu_torch.synth import synth_concat_collection
+    from debwt_tpu_torch.types import PipelineConfig
+    from debwt_tpu_torch.verify import _FAST_N, lf_verify
+
+    want = json.loads((ROOT / ".bench_cache.json").read_text())[
+        f"grouped_mbp{GENOME_MBP}"]
+    what = f"genome {GENOME_MBP} Mbp"
+    t0 = time.perf_counter()
+    coll = synth_concat_collection(GENOME_MBP)
+    t_synth = time.perf_counter() - t0
+    N = coll.bwt_len
+    if N <= 1 << 31:
+        raise AssertionError(f"{what}: N = {N} does not pass 2^31")
+    config = PipelineConfig(m=32, check=True)
+    n_rows, bound = api.rows_needed(coll, config.m), api.single_rows_bound(dev)
+    free, _total = torch.cuda.mem_get_info(dev)
+    stats = {}
+    route = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with RssPeak() as rss, contextlib.redirect_stderr(route):
+        t0 = time.perf_counter()
+        # check: character counts; stats: the plan the grouped tier ran
+        r = api.build(coll, config, device=dev, verbose=True, stats=stats)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = _read_counts()
+    route = route.getvalue().strip()
+    say(f"[genome] {route}")
+    if "grouped" not in route or "groups.select" not in r.timings:
+        raise AssertionError(f"{what} did not take the grouped tier: {route}")
+    _check_grouped_counts(stats, counts, what)
+    for name, n in counts.items():
+        rows[name]["launches_genome"] = n
+    if (stats["sp_len"], stats["n_blue"]) != (want["sp_len"], want["n_blue"]):
+        raise AssertionError(
+            f"{what}: sp_len {stats['sp_len']} and n_blue {stats['n_blue']}, "
+            f"the JAX package's {want['sp_len']} and {want['n_blue']}")
+    bwt6 = r.bwt6
+    cnt = oocore.char_counts(bwt6)
+    if not (bwt6.shape[0] == N and cnt[5] == 1 and bwt6[r.dollar_pos] == 5
+            and cnt[4] == coll.n_reads - 1 == r.sharp_pos.shape[0]
+            and (bwt6[r.sharp_pos] == 4).all()):
+        raise AssertionError(f"{what}: the '$' or '#' counts are wrong")
+    R = stats["cap_run"] + stats["ns_cap"]
+    if R < GENOME_MIN_R:
+        raise AssertionError(
+            f"{what}: classification rows {R} under {GENOME_MIN_R}: the "
+            "default cap no longer reaches the scan bound")
+    peak, reserved = (torch.cuda.max_memory_allocated(),
+                      torch.cuda.max_memory_reserved())
+    E = stats["chunk"] + 32 + 15
+    text_bytes = (16 + (stats["n_chunks"] - 1) * stats["chunk"] + E + (-E) % 16) // 4
+    say(json.dumps({
+        "genome_mbp": GENOME_MBP, "n": N, "m": 32, "input": "synth_concat",
+        "rows_needed": n_rows, "single_rows_bound": bound, "free_bytes": free,
+        "route": "grouped", "character_counts_equal": True,
+        "sp_len_n_blue_equal_jax": [want["sp_len"], want["n_blue"]],
+        **_plan_of(stats), "rows_largest_group": R, "build_s": dt,
+        "mbps": (N - coll.n_reads) / 1e6 / dt, "stage_s": r.timings,
+        "unmarked_s": dt - sum(v for k_, v in r.timings.items()
+                               if not k_.startswith("groups.")),
+        "peak_bytes": peak, "peak_reserved_bytes": reserved,
+        "peak_reserved_bytes_per_group_row": reserved / R,
+        "peak_reserved_less_text_per_group_row": (reserved - text_bytes) / R,
+        "group_bytes_per_row_constant": grouped._GROUP_BYTES_PER_ROW,
+        "host_peak_rss_bytes": rss.bytes,
+        "ru_maxrss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+        "synth_s": t_synth,
+    }))
+    del bwt6
+    assert N >= _FAST_N
+    t0 = time.perf_counter()
+    if not lf_verify(r, coll, max_steps=VERIFY_STEPS):
+        raise AssertionError(f"{what}: the LF walk fails")
+    say(json.dumps({"lf_verify_mbp": GENOME_MBP, "n": N, "walker": "native",
+                    "path": "sampled occ table", "steps": VERIFY_STEPS,
+                    "ok": True, "seconds": time.perf_counter() - t0}))
+    # the reference-format files, written and read back; the port's own
+    # hashes of this build (no reference binary's exist at this size)
+    t0 = time.perf_counter()
+    packed = r.packed()
+    t_pack = time.perf_counter() - t0
+    obj_sha = hashlib.sha256(packed).hexdigest()
+    del packed
+    with tempfile.TemporaryDirectory(prefix="debwt_genome_") as d:
+        obj = os.path.join(d, "genome.bwt")
+        t0 = time.perf_counter()
+        write_bwt(r, obj)
+        t_write = time.perf_counter() - t0
+        with open(obj, "rb") as f:
+            file_sha = hashlib.sha256(f.read()).hexdigest()
+        sharp, dollar = read_sidecars(obj)
+        sizes = {ext: os.path.getsize(obj + ext) for ext in ("", ".#", ".$")}
+    if not (file_sha == obj_sha and np.array_equal(sharp, r.sharp_pos)
+            and dollar == r.dollar_pos and sizes[""] == 8 * ((N + 31) // 32)):
+        raise AssertionError(f"{what}: the files read back differ")
+    say(json.dumps({
+        "genome_files_read_back_equal": True, "file_bytes": sizes,
+        "sharp_pos": r.sharp_pos.tolist(), "dollar_pos": int(r.dollar_pos),
+        "positions_past_2_31": int((r.sharp_pos >= 1 << 31).sum()
+                                   + (r.dollar_pos >= 1 << 31)),
+        "port_hashes": {"obj_sha": obj_sha, "sharp_sha": hashlib.sha256(
+            r.sharp_pos.astype("int64").tobytes()).hexdigest(),
+            "dollar": int(r.dollar_pos)},
+        "pack_s": t_pack, "write_s": t_write,
+    }))
+    del r, coll
+    special._BUF_CACHE.clear()          # 3 N bytes of padded-text buffers
+    oocore._malloc_trim()
+    torch.cuda.empty_cache()
+    # ---- kernel 2 at this build's classification rows ----
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    so = Parity("seg_scan_or")
+    shapes = _classification_scans(dev, gen, so, R, "genome classification")
+    rows["seg_scan_or"]["genome_shapes"] = shapes
+    rows["seg_scan_or"]["max_abs_err"] = max(rows["seg_scan_or"]["max_abs_err"],
+                                             so.max_abs_err)
+    for g in shapes:
+        say(f"[kernels] seg_scan_or {g['shape']}: {g['ms']:.4f} ms "
+            f"(bound {g['bound_ms']:.4f} ms by {g['bound_by']}, "
+            f"plain {g['plain_ms']:.4f} ms)")
+    say(f"[kernels] seg_scan_or at the genome classification: {so.cases} "
+        "cases equal")
     torch.cuda.empty_cache()
 
 
@@ -1334,6 +1501,7 @@ def _dist_two_ranks(dev, rows: dict, ref: dict):
                      device=dev0, backend="gloo").results()
         dt = time.perf_counter() - t0
         spill_dirs = sorted(os.listdir(spill))
+        left = [f for r in spill_dirs for f in os.listdir(spill / r)]
     for name, w in want.items():
         for r, g in enumerate(got[name]):
             launches = {k: int(g["launches_" + k])
@@ -1346,8 +1514,9 @@ def _dist_two_ranks(dev, rows: dict, ref: dict):
             if name == "ooc_dist" and not (bool(g["sharded_rank"])
                                            and launches["seg_scan_or"] >= 3):
                 raise AssertionError(f"gloo rank {r} {name}: not sharded")
-    if spill_dirs != ["rank0", "rank1"]:
-        raise AssertionError(f"ooc x dist spill directory holds {spill_dirs}")
+    if spill_dirs != ["rank0", "rank1"] or left:
+        raise AssertionError(
+            f"ooc x dist spill directory holds {spill_dirs}, files {left[:5]}")
     rows["window_keys"]["launches_dist_two_ranks"] = int(
         got["dist_large"][0]["launches_window_keys"])
     for k in ("window_keys", "seg_scan_or"):
@@ -1578,6 +1747,7 @@ def main() -> int:
     phase_near_bound(dev)
     phase_verify_count(dev)
     phase_ooc(dev, rows, *phase_grouped(dev, rows))
+    phase_genome(dev, rows)
     phase_dist(dev, rows)
     phase_cli(dev, rows)
     say(f"[done] {time.perf_counter() - t_all:.1f}s")

@@ -9,8 +9,8 @@ port:
   grouped  device-resident grouped engine (grouped.build_bwt_grouped):
            bounded device memory via key-range groups re-derived from
            the device-resident packed text; N < grouped.MAX_N. Built
-           and verified on an H100 80GB up to 600 Mbp (PERF.md); a
-           larger N is routed here but has not been measured
+           and verified on an H100 80GB up to 3 Gbp (PERF.md); an N
+           between that and MAX_N is routed here but not measured
   ooc      out-of-core chunked tier (oocore.build_bwt_ooc) with host-DRAM
            buckets, where the grouped tier cannot go: N >= grouped.MAX_N,
            or a single node key that outgrows a group (GroupOverflow).

@@ -15,6 +15,9 @@
 //   debwt_lf_walk_occ  sampled occ table (the reference's 1-in-32
 //                      sampling, src/insertCase3.c:158-193) — bounded
 //                      memory for the 30 Gbp tier
+// and the occ table itself, debwt_occ6 (the port's own addition: one
+// pass over the BWT, where verify._build_occ6_numpy's blocked cumsum
+// takes a minute at 600 Mbp).
 
 #include <cstdint>
 
@@ -55,6 +58,32 @@ int64_t debwt_lf_walk_occ(const uint8_t* bwt6, const uint8_t* x6,
         i = cum[c] + r;
     }
     return -1;
+}
+
+// The sampled occ table of verify._build_occ6_numpy: row j of occ6
+// ((n_s + 1) x 6, n_s = ceil(n / sample)) counts each of the six chars
+// in bwt6[: min(n, j * sample)]; counts6 gets the totals. Entries are
+// uint32 when occ_is_u32 != 0 (the caller's choice for n < 2^32), else
+// int64. A byte over 5 is counted nowhere, as in the NumPy version.
+void debwt_occ6(const uint8_t* bwt6, int64_t n, int64_t sample,
+                void* occ6, int occ_is_u32, int64_t* counts6) {
+    uint32_t* occ32 = static_cast<uint32_t*>(occ6);
+    int64_t* occ64 = static_cast<int64_t*>(occ6);
+    int64_t c[256] = {0};
+    const int64_t n_s = (n + sample - 1) / sample;
+    for (int64_t j = 0; j <= n_s; ++j) {
+        if (j) {
+            const int64_t end = j * sample < n ? j * sample : n;
+            for (int64_t i = (j - 1) * sample; i < end; ++i) ++c[bwt6[i]];
+        }
+        for (int k = 0; k < 6; ++k) {
+            if (occ_is_u32)
+                occ32[j * 6 + k] = static_cast<uint32_t>(c[k]);
+            else
+                occ64[j * 6 + k] = c[k];
+        }
+    }
+    for (int k = 0; k < 6; ++k) counts6[k] = c[k];
 }
 
 }  // extern "C"

@@ -74,26 +74,50 @@ class GoldenBwt:
         """Pack to the reference's on-disk format: little-endian u64
         words, 32 bases/word, first base in bits 63:62, zero-padded
         (src/insertCase3.c:36-40,115-117)."""
-        return pack_2bit_u64(self.bwt2)
+        return pack_2bit_u64(self.bwt6)
+
+
+# text characters a block of the packers below (a multiple of 32): the
+# transients stay O(block) however long the text
+_PACK_BLOCK = 1 << 26
+
+# a packed byte -> its four 2-bit chars, first char in bits 7:6
+_UNPACK4 = (
+    (np.arange(256, dtype=np.uint8)[:, None] >> np.array([6, 4, 2, 0], np.uint8))
+    & 3
+).astype(np.uint8)
 
 
 def pack_2bit_u64(codes: np.ndarray) -> bytes:
+    """Codes 0..3 in the reference's on-disk layout: little-endian u64
+    words, 32 bases a word, first base in bits 63:62, the last word
+    zero-padded. A code of 4 or 5 (a 6-letter BWT's '#' or '$') packs
+    as T, as the layout stores separators. Four codes go to a byte,
+    first code high, so a word's big-endian bytes are the packed bytes
+    in order: each 8-byte group is reversed for little-endian."""
     n = codes.shape[0]
-    n_words = (n + 31) // 32
-    padded = np.zeros(n_words * 32, dtype=np.uint64)
-    padded[:n] = codes.astype(np.uint64)
-    shifts = np.uint64(2) * (np.uint64(31) - np.arange(32, dtype=np.uint64))
-    words = (padded.reshape(n_words, 32) << shifts[None, :]).sum(
-        axis=1, dtype=np.uint64
-    )
-    return words.astype("<u8").tobytes()
+    out = np.zeros(((n + 31) // 32) * 8, dtype=np.uint8)
+    for s in range(0, n, _PACK_BLOCK):
+        blk = np.minimum(codes[s : s + _PACK_BLOCK], K.T).astype(np.uint8)
+        pad = (-blk.shape[0]) % 32
+        if pad:
+            blk = np.concatenate([blk, np.zeros(pad, np.uint8)])
+        q = blk.reshape(-1, 4)
+        b = (q[:, 0] << 6) | (q[:, 1] << 4) | (q[:, 2] << 2) | q[:, 3]
+        out[s // 4 : s // 4 + b.shape[0]] = b.reshape(-1, 8)[:, ::-1].reshape(-1)
+    return out.tobytes()
 
 
 def unpack_2bit_u64(raw: bytes, n: int) -> np.ndarray:
-    words = np.frombuffer(raw, dtype="<u8").astype(np.uint64)
-    shifts = np.uint64(2) * (np.uint64(31) - np.arange(32, dtype=np.uint64))
-    codes = (words[:, None] >> shifts[None, :]) & np.uint64(3)
-    return codes.reshape(-1)[:n].astype(np.uint8)
+    """Inverse of pack_2bit_u64: the first n codes (uint8 0..3)."""
+    by = np.frombuffer(raw, dtype=np.uint8)
+    out = np.empty(n, dtype=np.uint8)
+    for s in range(0, n, _PACK_BLOCK):
+        grp = by[s // 4 : (s + _PACK_BLOCK) // 4].reshape(-1, 8)[:, ::-1]
+        codes = _UNPACK4[grp.reshape(-1)].reshape(-1)
+        e = min(n, s + _PACK_BLOCK)
+        out[s:e] = codes[: e - s]
+    return out
 
 
 def golden_bwt(coll: SequenceCollection) -> GoldenBwt:

@@ -61,6 +61,7 @@ import torch
 
 from debwt_tpu_torch import constants as K
 from debwt_tpu_torch import engine, ops
+from debwt_tpu_torch.golden import _UNPACK4   # fill2 byte -> 4 chars
 from debwt_tpu_torch.kernels.seg_or import seg_scan_or
 from debwt_tpu_torch.kernels.window_keys import window_keys as _wk_counter
 from debwt_tpu_torch.pipeline import BwtResult, _bucket, _pow2, resolve_device
@@ -91,8 +92,9 @@ SCAN_ROWS = 1 << 29
 # by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W (see PERF.md):
 # the caching allocator's reserved peak of a whole build over the rows
 # of its largest group (R = cap_run + ns_cap) was 129.65 at R =
-# 41,943,104 (140 Mbp in 4 groups) and 105.77 at R = 402,653,248
-# (600 Mbp in 2 groups); the larger, rounded up. A text position of one
+# 41,943,104 (140 Mbp in 4 groups), 105.77 at R = 402,653,248 (600 Mbp
+# in 2 groups) and 101.68 at R = 536,870,908, the scan bound (3 Gbp in
+# 7 groups); the largest, rounded up. A text position of one
 # selection chunk costs the chunk's transients (keys, node keys, scan
 # words, masks, the compaction's indices): 40.1 bytes at a chunk of
 # 2^27 (the allocator's peak when the first selection ended, less the
@@ -103,13 +105,6 @@ _SELECT_BYTES_PER_POS = 64
 # target group fill fraction (slack for splitter sampling error; an
 # overflow is detected and retried with more groups)
 _FILL = 0.85
-
-# fill2 byte -> its four 2-bit chars, first char in bits 7:6
-_UNPACK4 = (
-    (np.arange(256, dtype=np.uint8)[:, None] >> np.array([6, 4, 2, 0], np.uint8))
-    & 3
-).astype(np.uint8)
-
 
 @dataclasses.dataclass(frozen=True)
 class GroupedConfig:
@@ -421,7 +416,7 @@ def build_bwt_grouped(
     device="cpu" is passed. mesh enables sharded SP ranking past
     oocore.SP_CAP (the ooc x dist composition; see build_bwt_ooc)."""
     from debwt_tpu_torch.oocore import (
-        SP_CAP, _sp_ranks_host, blue_fill, sp_string,
+        SP_CAP, _sp_ranks_host, blue_fill, check_char_counts, sp_string,
     )
 
     config = config or PipelineConfig()
@@ -620,9 +615,7 @@ def build_bwt_grouped(
     _mark("blue fill")
 
     if config.check:
-        got = np.bincount(bwt6, minlength=6)
-        want = np.bincount(coll.x6, minlength=6)
-        assert (got == want).all(), (got, want)
+        check_char_counts(bwt6, coll)
     _mark("count check (host)")
     (sharp,) = np.nonzero(bwt6 == K.SHARP)
     (dollar,) = np.nonzero(bwt6 == K.DOLLAR)

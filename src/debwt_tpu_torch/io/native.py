@@ -1,5 +1,5 @@
-"""ctypes bindings for the native host helpers: the LF walker
-(csrc/lf_walk.cpp), the out-of-core tier's pass-A binner
+"""ctypes bindings for the native host helpers: the LF walker and its
+occ table (csrc/lf_walk.cpp), the out-of-core tier's pass-A binner
 (csrc/ooc_binner.cpp) and the FASTA parser (csrc/fasta_parser.cpp).
 
 The counterpart of the JAX package's io/native.py. Each library is
@@ -7,9 +7,10 @@ built with the host C++ compiler at first use (kernels/_build.py) into
 csrc/build/. A helper that does not build raises: verify.py never turns
 into its Python loop, nor oocore into its NumPy binner, nor read_fasta
 into its NumPy parser, on its own. Those are the versions the tests
-hold the helpers against; they select the walk loop by replacing
-`has_lf_walk` and call the NumPy binner, oocore._bin_rows_numpy, and
-the NumPy parser, io.fasta._parse_fasta_numpy, directly.
+hold the helpers against; they select the walk loop and the NumPy occ
+table by replacing `has_lf_walk` and call the NumPy binner,
+oocore._bin_rows_numpy, and the NumPy parser,
+io.fasta._parse_fasta_numpy, directly.
 """
 
 from __future__ import annotations
@@ -34,6 +35,11 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ]
+        lib.debwt_occ6.restype = None
+        lib.debwt_occ6.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
     return lib
 
@@ -82,6 +88,20 @@ def lf_walk_occ(bwt6, x6, occ6, cum, sample: int, steps: int,
         bwt6.ctypes.data, x6.ctypes.data, occ6.ctypes.data, is_u32,
         cum.ctypes.data, sample, n, steps, start,
     ))
+
+
+def occ6(bwt6, sample: int, dtype):
+    """Native sampled occ table: (occ6[(n_s + 1), 6] of `dtype`, uint32
+    or int64, and the six totals int64), as verify._build_occ6_numpy."""
+    _checked(bwt6, np.uint8, "bwt6")
+    if sample <= 0 or np.dtype(dtype) not in (np.uint32, np.int64):
+        raise ValueError("occ6: sample must be positive, dtype uint32 or int64")
+    n = bwt6.shape[0]
+    occ = np.empty(((n + sample - 1) // sample + 1, 6), dtype=dtype)
+    counts = np.empty(6, dtype=np.int64)
+    _lib().debwt_occ6(bwt6.ctypes.data, n, sample, occ.ctypes.data,
+                      1 if occ.dtype == np.uint32 else 0, counts.ctypes.data)
+    return occ, counts
 
 
 def _binner():

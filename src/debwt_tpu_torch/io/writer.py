@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from debwt_tpu_torch.golden import pack_2bit_u64, unpack_2bit_u64
+from debwt_tpu_torch.golden import unpack_2bit_u64
 
 
 def write_bwt(result, obj_path: str) -> None:
@@ -23,16 +23,19 @@ def write_bwt(result, obj_path: str) -> None:
         f.write(np.uint64(result.dollar_pos).astype("<u8").tobytes())
 
 
+def read_sidecars(obj_path: str):
+    """(sharp_pos int64, dollar_pos) from `<obj>.#` and `<obj>.$`."""
+    sharp = np.fromfile(obj_path + ".#", dtype="<u8").astype(np.int64)
+    dollar = int(np.fromfile(obj_path + ".$", dtype="<u8")[0])
+    return sharp, dollar
+
+
 def read_bwt(obj_path: str, bwt_len: int):
     """Returns (bwt6 uint8[bwt_len], sharp_pos, dollar_pos) — the
     6-letter BWT reconstructed from the packed file + sidecars."""
-    raw = open(obj_path, "rb").read()
-    bwt2 = unpack_2bit_u64(raw, bwt_len)
-    sharp = np.frombuffer(open(obj_path + ".#", "rb").read(), dtype="<u8")
-    dollar = int(
-        np.frombuffer(open(obj_path + ".$", "rb").read(), dtype="<u8")[0]
-    )
-    bwt6 = bwt2.astype(np.uint8).copy()
-    bwt6[sharp.astype(np.int64)] = 4
+    with open(obj_path, "rb") as f:
+        bwt6 = unpack_2bit_u64(f.read(), bwt_len)
+    sharp, dollar = read_sidecars(obj_path)
+    bwt6[sharp] = 4
     bwt6[dollar] = 5
-    return bwt6, sharp.astype(np.int64), dollar
+    return bwt6, sharp, dollar

@@ -464,6 +464,31 @@ def blue_fill(bwt6, blue_parts: list, rank, sp_pos, device) -> int:
     return int(b_base.shape[0])
 
 
+# characters a block of char_counts: at 3 Gbp np.bincount of the whole
+# array would widen it to 24 GB of intp
+_COUNT_BLOCK = 1 << 26
+
+
+def char_counts(a: np.ndarray) -> np.ndarray:
+    """int64[6] counts of the codes 0..5 in `a`, a block at a time."""
+    out = np.zeros(6, dtype=np.int64)
+    for s in range(0, a.shape[0], _COUNT_BLOCK):
+        blk = a[s : s + _COUNT_BLOCK]
+        out += [np.count_nonzero(blk == c) for c in range(6)]
+    return out
+
+
+def check_char_counts(bwt6: np.ndarray, coll: SequenceCollection):
+    """The BWT holds each character of the text (coll.x6) as often as
+    the text does: the counts of x2, less what its separator positions
+    hold, plus n_reads - 1 '#' and one '$' (no N-byte x6 copy)."""
+    want = char_counts(coll.x2) - np.bincount(coll.x2[coll.sep], minlength=6)[:6]
+    want[K.SHARP] += coll.n_reads - 1
+    want[K.DOLLAR] += 1
+    got = char_counts(bwt6)
+    assert (got == want).all(), (got, want)
+
+
 # ---------------------------------------------------------------------------
 # the build
 # ---------------------------------------------------------------------------
@@ -651,11 +676,14 @@ def build_bwt_ooc(
     else:
         if ooc.spill_dir:
             # disk-spill mode memmaps the output too: the array pages to
-            # the spill dir instead of pinning N bytes of RSS
-            bwt6 = np.memmap(
-                os.path.join(ooc.spill_dir, "bwt6.u8"), dtype=np.uint8,
-                mode="w+", shape=(N,),
-            )
+            # the spill dir instead of pinning N bytes of RSS. Nothing
+            # needs the path once the mapping exists, so the file is
+            # unlinked at once: the mapping keeps its pages (and the
+            # returned result readable) and the disk space goes with
+            # the last reference, so no output outlives the build
+            bwt_path = os.path.join(ooc.spill_dir, "bwt6.u8")
+            bwt6 = np.memmap(bwt_path, dtype=np.uint8, mode="w+", shape=(N,))
+            os.unlink(bwt_path)
         else:
             bwt6 = np.zeros(N, dtype=np.uint8)
         sp_pos_parts = []             # SP event positions (int64)
@@ -815,7 +843,9 @@ def build_bwt_ooc(
                 "splitters": splitters.tolist(),
             }
             _ckpt_save(ooc.spill_dir, state)
-            store.delete(b)   # safe only after the manifest bump
+        # consumed files are gone already; an empty bucket's were never
+        # loaded. Under checkpoints only after the manifest bump
+        store.delete(b)
         _malloc_trim()
     assert base_box[0] == N, (base_box[0], N)
     del staging, key_b, k16_b, ord_b, arange_b
@@ -850,9 +880,7 @@ def build_bwt_ooc(
     _say(f"blue entries: {n_blue}")
 
     if config.check:
-        got = np.bincount(bwt6, minlength=6)
-        want = np.bincount(coll.x6, minlength=6)
-        assert (got == want).all(), (got, want)
+        check_char_counts(bwt6, coll)
         _mark("count check (host)")
     if stats is not None:
         stats.update(
@@ -867,8 +895,14 @@ def build_bwt_ooc(
             },
         )
     if ckpt:
+        # finished: the outputs live on in the mapping of bwt6.u8 and in
+        # memory, so the spill directory is emptied. A crash before the
+        # last unlink leaves a "done" manifest, which the next build
+        # ignores like an absent one (_ckpt_load)
         bwt6.flush()
         _ckpt_save(ooc.spill_dir, {"fingerprint": fp, "stage": "done"})
+        for p in [bwt_path, sp_path] + bl_paths + [_manifest_path(ooc.spill_dir)]:
+            os.unlink(p)
     _malloc_trim()
     (sharp,) = np.nonzero(bwt6 == K.SHARP)
     (dollar,) = np.nonzero(bwt6 == K.DOLLAR)

@@ -85,7 +85,7 @@ class BwtResult:
             return u64[:n_words].astype("<u8").tobytes()
         from debwt_tpu_torch.golden import pack_2bit_u64
 
-        return pack_2bit_u64(self.bwt2)
+        return pack_2bit_u64(self.bwt6)
 
 
 def _pow2(x: int) -> int:

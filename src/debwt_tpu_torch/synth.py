@@ -1,12 +1,22 @@
-"""Synthetic genome collections (a copy of the repo's bench.synth_reads
-that returns codes instead of strings).
+"""Synthetic genome collections: copies of the repo's two generators,
+returning codes instead of strings.
 
-One base genome with internal repeat content plus n_genomes - 1 mutated
-copies — the deBWT target workload, a collection of near-identical
-genomes. The random draws are bench.synth_reads' own, in the same order,
-so the same (mbp, seed) gives the same genomes and the reference hashes
-recorded for them in .bench_cache.json apply; returning codes skips the
-per-genome string join (140 M characters at 140 Mbp).
+Both make one base genome plus n_genomes - 1 copies with point
+mutations — the deBWT target workload, a collection of near-identical
+genomes — with the random draws of the original, in the same order, so
+the same (mbp, seed) gives the same genomes and the counts and hashes
+recorded for them in .bench_cache.json apply:
+
+  synth_codes         bench.synth_reads: a base genome with internal
+                      repeat content (the `ref_mbp*` reference hashes)
+  synth_concat_codes  tools/bench_ooc.py's synth_concat: a plain random
+                      base genome (the `grouped_mbp*` and `ooc_mbp*`
+                      rows' sp_len and n_blue, at 1 and 3 Gbp); its SP
+                      stream is about 0.55% of the text, where
+                      synth_codes' is over a fifth
+
+Returning codes skips the per-genome string join (140 M characters at
+140 Mbp).
 """
 
 from __future__ import annotations
@@ -47,3 +57,28 @@ def synth_codes(mbp: float, seed: int = 0, n_genomes: int = 4,
 
 def synth_collection(mbp: float, seed: int = 0) -> SequenceCollection:
     return SequenceCollection.from_concat(*synth_codes(mbp, seed))
+
+
+def synth_concat_codes(mbp: float, seed: int = 0, n_genomes: int = 4,
+                       mutation_rate: float = 2e-3):
+    """(codes uint8, lengths int64) of tools/bench_ooc.py's synth_concat
+    collection, back to back — the input of SequenceCollection.from_concat.
+    At 3000 Mbp the base genome's int64 draw is a 6 GB transient, as in
+    the original (a draw in pieces would not give the same genomes)."""
+    rng = np.random.default_rng(seed)
+    per = int(mbp * 1e6) // n_genomes
+    base = rng.integers(0, 4, size=per, dtype=np.int64).astype(np.uint8)
+    genomes = []
+    for g in range(n_genomes):
+        gen = base.copy()
+        if g:
+            n_mut = int(per * mutation_rate)
+            idx = rng.choice(per, size=n_mut, replace=False)
+            gen[idx] = (gen[idx] + rng.integers(1, 4, size=n_mut)) % 4
+        genomes.append(gen)
+    del base
+    return np.concatenate(genomes), np.full(n_genomes, per, dtype=np.int64)
+
+
+def synth_concat_collection(mbp: float, seed: int = 0) -> SequenceCollection:
+    return SequenceCollection.from_concat(*synth_concat_codes(mbp, seed))

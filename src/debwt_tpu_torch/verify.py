@@ -33,7 +33,7 @@ def build_occ(bwt6: np.ndarray, sample: int = 32):
     """Sampled occurrence table over ACGT (separators excluded from the
     counts, matching src/LFsearch.c:207-231 which skips separator Ts).
     Returns (occ[ceil(N/sample)+1, 4], C int64[4]); occ[j] counts each
-    base in bwt6[: j*sample]. Built in bounded blocks, as _build_occ6."""
+    base in bwt6[: j*sample]. Built by _build_occ6."""
     occ6, counts = _build_occ6(bwt6, sample)
     C = np.zeros(4, dtype=np.int64)
     C[1:] = np.cumsum(counts[:4])[:-1]
@@ -43,11 +43,21 @@ def build_occ(bwt6: np.ndarray, sample: int = 32):
 def _build_occ6(bwt6: np.ndarray, sample: int):
     """occ6[j, c] = #occurrences of c in bwt6[: j*sample], over the
     6-letter alphabet (A C G T # $), with the six totals beside it.
-    uint32 when counts fit. Built in 2^20-row blocks: the transient is
-    O(block), not O(N)."""
+    uint32 when counts fit. Built by the native walker's library in one
+    pass (3 Gbp in seconds); _build_occ6_numpy is what it is held to."""
+    from debwt_tpu_torch.io import native
+
+    dtype = np.uint32 if bwt6.shape[0] < 2**32 else np.int64
+    if native.has_lf_walk():
+        return native.occ6(np.ascontiguousarray(bwt6), sample, dtype)
+    return _build_occ6_numpy(bwt6, sample, dtype)
+
+
+def _build_occ6_numpy(bwt6: np.ndarray, sample: int, dtype):
+    """The plain version of _build_occ6, in 2^20-row blocks: the
+    transient is O(block), not O(N)."""
     n = bwt6.shape[0]
     n_s = (n + sample - 1) // sample
-    dtype = np.uint32 if n < 2**32 else np.int64
     occ6 = np.zeros((n_s + 1, 6), dtype=dtype)
     base = np.zeros(6, dtype=np.int64)
     CH = (1 << 20) // sample * sample or sample

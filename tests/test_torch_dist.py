@@ -5,7 +5,6 @@ before the JAX references are computed) against the JAX tier on the
 the JAX tier fails at m = 32, the ooc x dist composition, the routes of
 api.build and the CLI's --dist, and the guards."""
 
-import json
 import os
 import subprocess
 import sys
@@ -118,17 +117,15 @@ def test_ooc_sharded_sp_rank(runs):
 def test_ooc_ranks_spill_and_checkpoint_apart(runs):
     """ooc x dist with one spill_dir and checkpoints for both ranks (as
     ranks sharing a host have): each rank spills and keeps its manifest
-    under spill_dir/rank{r}, ends with its manifest done and no bucket
-    file left, and builds golden's bytes."""
+    under spill_dir/rank{r}, ends with that directory empty (no bucket
+    file, no bwt6.u8, no manifest), and builds golden's bytes."""
     got = runs[2].results()["ooc_spill"]
     every_rank(got, golden_bwt(SequenceCollection.from_reads(ooc_reads())))
     assert all(bool(g["sharded_rank"]) for g in got)
     spill = runs[2].out / "spill"
     assert sorted(os.listdir(spill)) == ["rank0", "rank1"]
     for r in range(2):
-        d = spill / f"rank{r}"
-        assert json.loads((d / "manifest.json").read_text())["stage"] == "done"
-        assert not [f for f in os.listdir(d) if f.startswith("bk")]
+        assert os.listdir(spill / f"rank{r}") == []
 
 
 def test_ooc_past_sp_cap_needs_a_mesh():

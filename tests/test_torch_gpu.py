@@ -13,13 +13,15 @@ import pytest
 import torch
 
 from debwt_tpu_torch import api, count_kmers
+from debwt_tpu_torch import grouped as grouped_mod
 from debwt_tpu_torch.golden import golden_bwt
 from debwt_tpu_torch.grouped import GroupedConfig, build_bwt_grouped
 from debwt_tpu_torch.kernels import seg_or
 from debwt_tpu_torch.kernels import window_keys as wk
 from debwt_tpu_torch.oocore import OocConfig, build_bwt_ooc
-from debwt_tpu_torch.ops import pack_2bit_words
-from debwt_tpu_torch.pipeline import build_bwt
+from debwt_tpu_torch.ops import pack_2bit_words, pack_2bit_words_host
+from debwt_tpu_torch.pipeline import _bucket, _pow2, build_bwt
+from debwt_tpu_torch.special import build_special
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 from debwt_tpu_torch.verify import lf_verify
 
@@ -188,6 +190,61 @@ def test_grouped_on_card_matches_golden(cuda, m, cap, chunk):
     assert r.packed() == g.packed()
     np.testing.assert_array_equal(r.sharp_pos, g.sharp_pos)
     assert r.dollar_pos == g.dollar_pos
+
+
+def _one_group_rows(coll, m):
+    """The select buffers and special rows of a one-group plan of coll,
+    built on the CPU as build_bwt_grouped builds them."""
+    N = coll.bwt_len
+    C = 1024
+    n_chunks = -(-N // C)
+    E = C + m + 15
+    E += (-E) % 16
+    x2ext = np.full(16 + (n_chunks - 1) * C + E, 3, np.uint8)
+    x2ext[16 : 16 + N] = coll.x2
+    x2w = torch.from_numpy(pack_2bit_words_host(x2ext).view(np.int32))
+    cap = _bucket(N + 64)
+    cap += (-cap) % 4
+    bkey, bord, bf8, n = grouped_mod._select_group(
+        x2w, coll.sep.astype(np.int64), N, 0, 0, True, m, C, cap, n_chunks, E)
+    sp = build_special(coll, m)
+    n_spec = sp.spec_tfill.shape[0]
+    ns_cap = _pow2(max(16, n_spec))
+
+    def pad(a, fillv):
+        out = np.full(ns_cap, fillv, dtype=a.dtype)
+        out[:n_spec] = a
+        return torch.from_numpy(out)
+
+    spec = (pad(((sp.spec_tfill << np.uint64(2)) | np.uint64(3)).view(np.int64), -1),
+            pad((np.arange(n_spec) + grouped_mod.ORD_SPEC - grouped_mod.ORD_BIAS)
+                .astype(np.int32), np.int32(grouped_mod.PAD_ORD)),
+            pad(sp.spec_bwt6, np.uint8(0)))
+    return (bkey, bord, bf8), spec, cap, ns_cap, n
+
+
+@pytest.mark.parametrize("m", [24, 32])
+def test_classify_positions_past_2_31_on_card(cuda, m):
+    """The grouped classification with every main row's position moved
+    past 2^31 (int32 ords turned positive, as a text over 2.15 Gbp gives
+    them): on the card it equals the same call on the CPU, with b_pos
+    int64 at or over 2^31, and launches kernel 2 three times."""
+    coll = SequenceCollection.from_reads(_repeat_reads(m))
+    (bkey, bord, bf8), spec, cap, ns_cap, n = _one_group_rows(coll, m)
+    main = bord < grouped_mod.ORD_SPEC - grouped_mod.ORD_BIAS
+    assert int(main.sum()) == n > 0
+    shift = (1 << 31) + (1 << 20)
+    bord = torch.where(main, bord.to(torch.int64) + shift, bord).to(torch.int32)
+    assert (bord[main] >= 0).all()
+    args = (bkey, bord, bf8) + spec
+    want = grouped_mod._classify_group(*args, m, cap, ns_cap)
+    before = seg_or.seg_scan_or.launches
+    got = grouped_mod._classify_group(*(a.to(cuda) for a in args), m, cap, ns_cap)
+    assert seg_or.seg_scan_or.launches == before + 3
+    assert got[3].dtype == torch.int64 and bool((want[3] >= 1 << 31).all())
+    assert got[4:] == want[4:]
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_api_routes_to_grouped_on_card(cuda, monkeypatch):

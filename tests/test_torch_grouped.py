@@ -284,6 +284,84 @@ def test_select_and_classify_match_jax_stages(name):
                 np.testing.assert_array_equal(a, np.asarray(b))
 
 
+# a main row's position moved past 2^31 (and by 2^20 more, so that no
+# shifted position sits on the boundary): its JAX uint32 ord rises to
+# 0x80100000 and up, under ORD_SPEC; its port int32 ord turns positive
+POS_SHIFT = (1 << 31) + (1 << 20)
+
+
+def _shift_main(jord):
+    jord = np.asarray(jord).copy()
+    main = jord < jgrouped.ORD_SPEC
+    jord[main] += np.uint32(POS_SHIFT)
+    assert (jord[main] < jgrouped.ORD_SPEC).all()
+    return jord
+
+
+@pytest.mark.parametrize("name", ["multigroup", "top_bit_m32", "branch_dense"])
+def test_classify_positions_past_2_31_match_jax(name):
+    """Every group of one plan with every main row's position shifted
+    past 2^31, as a text over 2.15 Gbp gives them: the port's
+    classification equals the JAX module's (fills, keys, b_sgc, b_pos);
+    the events and their flags are those of the unshifted rows, and
+    b_pos is int64, the shifted position, at or over 2^31."""
+    make, m, cap, chunk = CONFIGS[name]
+    coll = SequenceCollection.from_reads(make())
+    p = _plan(coll, m, cap, chunk)
+    sp = jax_build_special(_jax_coll(coll), m)
+    n_spec = sp.spec_tfill.shape[0]
+    spec_dest = (np.searchsorted(p["splitters"], sp.spec_tfill, side="right")
+                 if p["G"] > 1 else np.zeros(n_spec, np.int64))
+    ns_cap = jax_pow2(max(16, int(np.bincount(spec_dest, minlength=p["G"]).max())))
+    s_hi = (sp.spec_tfill >> np.uint64(32)).astype(np.uint32)
+    s_lo = (sp.spec_tfill & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    s_hi2 = (s_hi << np.uint32(2)) | (s_lo >> np.uint32(30))
+    s_lo2 = (s_lo << np.uint32(2)) | np.uint32(3)
+    s_ord = jgrouped.ORD_SPEC | np.arange(n_spec, dtype=np.uint32)
+    cap_run = p["cap_run"]
+    shifted_events = 0
+    for g in range(p["G"]):
+        (jhi, jlo, jord, jf8, joff), _lo, _hi = _jax_select(coll, p, g, m)
+        smask = spec_dest == g
+
+        def pad(a, fillv):
+            out = np.full(ns_cap, fillv, dtype=a.dtype)
+            out[: int(smask.sum())] = a[smask]
+            return out
+
+        jspec = (pad(s_hi2, np.uint32(0xFFFFFFFF)), pad(s_lo2, np.uint32(0xFFFFFFFF)),
+                 pad(s_ord, np.uint32(0xFFFFFFFF)), pad(sp.spec_bwt6, np.uint8(0)))
+        s_key = torch.from_numpy(ops.keys_from_pair(jspec[0], jspec[1]))
+        s_ordp = torch.from_numpy(grouped.ord_from_jax(jspec[2]))
+
+        def both(jord_in):
+            jout = jgrouped._classify_group(
+                jhi, jlo, jnp.asarray(jord_in), jf8,
+                *(jnp.asarray(a) for a in jspec), m, cap_run, ns_cap)
+            rows = grouped.select_from_jax(jhi, jlo, jord_in, jf8, cap_run)
+            got = grouped._classify_group(
+                *(torch.from_numpy(np.array(a)) for a in rows), s_key, s_ordp,
+                torch.from_numpy(jspec[3]), m, cap_run, ns_cap)
+            assert got[3].dtype == torch.int64
+            got = tuple(a.numpy() if isinstance(a, torch.Tensor) else a for a in got)
+            want = grouped.classify_from_jax(*jout)
+            assert got[4:] == want[4:]
+            for a, b in zip(got[:4], want[:4]):
+                np.testing.assert_array_equal(a, b)
+            return got
+
+        jord_s = _shift_main(jord)
+        assert (jord_s[: int(joff)] >= 1 << 31).all()
+        base, moved = both(np.asarray(jord)), both(jord_s)
+        np.testing.assert_array_equal(moved[1], base[1])        # events, flags
+        main_ev = base[3] < jgrouped.ORD_SPEC
+        np.testing.assert_array_equal(moved[3][main_ev], base[3][main_ev] + POS_SHIFT)
+        np.testing.assert_array_equal(moved[3][~main_ev], base[3][~main_ev])
+        assert (moved[3] >= 1 << 31).all()
+        shifted_events += int(main_ev.sum())
+    assert shifted_events > 0
+
+
 def test_ord_conversion_keeps_classes_and_order():
     u = np.array([0, 5, 0xDFFFFFFF, 0xE0000000, 0xE0000007, 0xEFFFFFFF,
                   0xF0000000, 0xFFFFFFFF], dtype=np.uint32)

@@ -157,16 +157,38 @@ def test_ooc_matches_the_fused_engine():
 
 
 def test_ooc_spill_files_gone_afterwards(tmp_path):
+    """No file outlives a spilled build, bwt6.u8 included: the output
+    pages to a mapping of a file unlinked as soon as it is mapped, and
+    the result stays readable."""
     make, m, fields = CONFIGS["spill"]
     coll = SequenceCollection.from_reads(make())
     d = tmp_path / "sp"
     res = build_bwt_ooc(coll, PipelineConfig(m=m),
                         OocConfig(**fields, spill_dir=str(d)), device="cpu")
-    _same_result(res, golden_bwt(coll))
-    assert list(d.glob("bk*")) == []
-    # the output pages to the spill directory, not to RSS
+    assert os.listdir(d) == []
+    # the output pages to the (unlinked) spill file, not to RSS
     assert isinstance(res.bwt6, np.memmap)
-    assert sorted(os.listdir(d)) == ["bwt6.u8"]
+    _same_result(res, golden_bwt(coll))
+
+
+@pytest.mark.parametrize("checkpoint", [False, True])
+@pytest.mark.parametrize("name,n_buckets", [("spill", 8), ("repetitive_skew", 64)])
+def test_ooc_spill_dir_empty_after_build(tmp_path, name, n_buckets, checkpoint):
+    """A finished spilled build empties its spill directory: with
+    checkpoints no bwt6.u8, SP or blue file and no manifest either. At
+    64 buckets the skewed text leaves buckets empty, whose never-loaded
+    files go too."""
+    make, m, fields = CONFIGS[name]
+    coll = SequenceCollection.from_reads(make())
+    fields = dict(fields, n_buckets=n_buckets)
+    d = tmp_path / "sp"
+    res = build_bwt_ooc(coll, PipelineConfig(m=m),
+                        OocConfig(**fields, spill_dir=str(d), checkpoint=checkpoint),
+                        device="cpu")
+    assert os.listdir(d) == []
+    assert isinstance(res.bwt6, np.memmap)
+    _same_result(res, golden_bwt(coll))
+    assert (_empty_buckets(coll, m, fields) > 0) == (n_buckets == 64)
 
 
 def test_ooc_sharded_rank_raises():

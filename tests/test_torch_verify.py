@@ -93,6 +93,23 @@ def test_occ_tables_match_jax(sample):
     np.testing.assert_array_equal(C, jC)
 
 
+@pytest.mark.parametrize("dtype", [np.uint32, np.int64])
+@pytest.mark.parametrize("n,sample", [(0, 32), (1, 32), (31, 32), (32, 32),
+                                      (1000, 32), (1001, 3), (777, 1)])
+def test_native_occ_table_matches_numpy(n, sample, dtype):
+    """The native one-pass occ table equals the blocked NumPy one, in
+    both entry types, on ragged lengths; bytes over 5 count nowhere."""
+    rng = np.random.default_rng(n + sample)
+    bwt6 = rng.integers(0, 8, size=n, dtype=np.uint8)
+    occ6, counts = native.occ6(bwt6, sample, dtype)
+    want, wcounts = verify._build_occ6_numpy(bwt6, sample, dtype)
+    assert occ6.dtype == want.dtype == dtype
+    np.testing.assert_array_equal(occ6, want)
+    np.testing.assert_array_equal(counts, wcounts)
+    np.testing.assert_array_equal(
+        counts, [np.count_nonzero(bwt6 == c) for c in range(6)])
+
+
 def test_native_walker_builds_into_the_build_directory():
     """The walker's library is built by the host compiler at first use,
     into the git-ignored build directory."""
