@@ -75,9 +75,31 @@ Phases, in order; any failure ends the script with a non-zero code:
            written by io.write_bwt to a temporary directory and read back
            (the `.#` and `.$` positions, the object's sha256); the plan,
            seconds, Mbp/s, stage times, peak device bytes a group row,
-           the host's peak RSS and the port's own hashes; then
-           seg_scan_or at this build's classification rows, both
-           directions, against its plain version and timed
+           the host's peak RSS and the port's own hashes, which must
+           equal those recorded for this build; then seg_scan_or at this
+           build's classification rows, both directions, against its
+           plain version and timed
+  ooc_rehearsal
+           the out-of-core tier spilled with checkpoints, killed and
+           resumed across processes (tools/rehearse_ooc.py's job):
+           synth_concat at 1000 Mbp (at 3000 Mbp the 57 GB spill would
+           pass the 45 GiB that one run may write to the disk of the
+           H100 machine this script was sized for) built on the
+           grouped tier through api.build for the same-run hashes, its
+           text written once to a disk-backed temporary directory
+           (tmpfs, or under 1.25 x 20 bytes a position free, fails),
+           this process's memory freed, then tests/torch_ooc_worker.py
+           (OocConfig(chunk=2^26, n_buckets=256, spill_dir,
+           checkpoint=True), check=True) in a child SIGKILLed from here
+           once the manifest reaches bucket 128 of pass B, and in a
+           fresh child that resumes it; it must skip pass A (no
+           kernel-1 launch), launch kernel 2 three times a
+           classification, classify no more than the buckets left, have
+           ooc_mbp1000.0's sp_len and grouped_mbp1000.0's n_blue, the
+           grouped build's hashes, and leave the spill directory empty;
+           each child's seconds and peak RSS, the spill peak (sampled
+           every 2 s), the resumed stage times; then seg_scan_or at the
+           largest bucket's rows
   dist     the multi-device tier (parallel.dist_build_bwt), one process a
            rank: through api.build(n_devices=1), one rank over NCCL at 4.6
            and 250 Mbp against the reference hashes (seconds, Mbp/s, stage
@@ -150,6 +172,22 @@ DIST_GLOO_MBP = 40.0        # two ranks on one card, against the fused engine
 OOC_DIST_SP_CAP = 1 << 12   # under 4.6 Mbp's 33,979 SP events: sharded ranking
 GENOME_MBP = 3000.0         # synth_concat: .bench_cache.json grouped_mbp3000.0
 GENOME_MIN_R = (1 << 29) - (1 << 20)   # its classification reaches the scan bound
+# the port's own hashes of that build, as first recorded; not the
+# reference binary's
+GENOME_HASHES = (
+    "9de95ddf21d8dce6b441465b6035964d0e722f1f149b6bcaf52a00c4f2090d97",
+    "eb56453b5bee26e43351f6794c7487aed1cd92e007bbc3d52680624f4b2e6eef",
+    2_733_368_556)
+# the kill-and-resume rehearsal: tools/rehearse_ooc.py's size and knobs.
+# Not 3000 Mbp: its 57 GB of spill pass the 45 GiB that one run may write
+# to the disk of the H100 machine this script was sized for (freed
+# blocks count)
+OOC_REHEARSAL_MBP = 1000.0
+OOC_REHEARSAL_BUCKETS = 256
+OOC_REHEARSAL_KILL_AT = 128  # SIGKILL once the manifest reaches this bucket
+OOC_SPILL_BYTES = 20        # spill bytes a position: 18 of bucket rows, the
+#                             output's 1, the shared text's 1
+OOC_CHILD_TIMEOUT = 600     # seconds an out-of-core child may take
 RANK_TIMEOUT = 600          # seconds a rank process may take
 CLI_MBP = 140.0             # the cli phase's FASTA: every tier's CLI run
 CLI_SMALL_MBP = 4.6         # -k 12
@@ -1226,14 +1264,18 @@ def phase_genome(dev, rows: dict):
     if not (file_sha == obj_sha and np.array_equal(sharp, r.sharp_pos)
             and dollar == r.dollar_pos and sizes[""] == 8 * ((N + 31) // 32)):
         raise AssertionError(f"{what}: the files read back differ")
+    hashes = (obj_sha, hashlib.sha256(r.sharp_pos.astype("int64").tobytes())
+              .hexdigest(), int(r.dollar_pos))
+    if hashes != GENOME_HASHES:
+        raise AssertionError(f"{what}: hashes {hashes}, the port's earlier "
+                             f"{GENOME_HASHES}")
     say(json.dumps({
         "genome_files_read_back_equal": True, "file_bytes": sizes,
         "sharp_pos": r.sharp_pos.tolist(), "dollar_pos": int(r.dollar_pos),
         "positions_past_2_31": int((r.sharp_pos >= 1 << 31).sum()
                                    + (r.dollar_pos >= 1 << 31)),
-        "port_hashes": {"obj_sha": obj_sha, "sharp_sha": hashlib.sha256(
-            r.sharp_pos.astype("int64").tobytes()).hexdigest(),
-            "dollar": int(r.dollar_pos)},
+        "port_hashes": dict(zip(("obj_sha", "sharp_sha", "dollar"), hashes)),
+        "port_hashes_equal_recorded": True,
         "pack_s": t_pack, "write_s": t_write,
     }))
     del r, coll
@@ -1254,6 +1296,185 @@ def phase_genome(dev, rows: dict):
             f"plain {g['plain_ms']:.4f} ms)")
     say(f"[kernels] seg_scan_or at the genome classification: {so.cases} "
         "cases equal")
+    torch.cuda.empty_cache()
+
+
+def _spill_fs(path, N: int) -> dict:
+    """The filesystem that holds `path` (the /proc/mounts entry of the
+    longest mount point over it) and its free bytes. Raises on tmpfs,
+    where a spill is host memory, and under 1.25 x OOC_SPILL_BYTES x N
+    free bytes."""
+    import os
+    import shutil
+
+    real = os.path.realpath(path)
+    mount, fstype = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            _dev, mnt, typ = line.split()[:3]
+            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) > len(mount):
+                mount, fstype = mnt, typ
+    free = shutil.disk_usage(path).free
+    need = int(1.25 * OOC_SPILL_BYTES * N)
+    fs = {"path": real, "mount": mount, "fstype": fstype, "free_bytes": free,
+          "need_bytes": need}
+    if fstype in ("tmpfs", "ramfs"):
+        raise AssertionError(f"the spill directory is in host memory: {fs}")
+    if free < need:
+        raise AssertionError(f"too little disk for the spill: {fs}")
+    return fs
+
+
+def phase_ooc_rehearsal(dev, rows: dict):
+    """The out-of-core tier spilled with checkpoints, killed and resumed
+    across processes (tools/rehearse_ooc.py's job): synth_concat at
+    OOC_REHEARSAL_MBP built here on the grouped tier for the same-run
+    hashes, its text written once to disk, then
+    tests/torch_ooc_worker.py (OocConfig(chunk=2^26, n_buckets=256,
+    spill_dir, checkpoint=True), check=True) in a child that this
+    process SIGKILLs once the manifest reaches bucket 128 of pass B, and
+    in a fresh child that resumes it. The resumed child must skip pass
+    A, classify only what was left, have the JAX package's sp_len and
+    n_blue and the grouped build's hashes, and leave the spill
+    directory empty; then seg_scan_or at the largest bucket's rows."""
+    import os
+    import tempfile
+
+    import torch
+
+    from debwt_tpu_torch import api, oocore, special
+    from debwt_tpu_torch.synth import synth_concat_collection
+    from debwt_tpu_torch.types import PipelineConfig
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_ooc_worker import Child, save_collection, watch
+
+    cache = json.loads((ROOT / ".bench_cache.json").read_text())
+    want = {"sp_len": cache[f"ooc_mbp{OOC_REHEARSAL_MBP}"]["sp_len"],
+            "n_blue": cache[f"grouped_mbp{OOC_REHEARSAL_MBP}"]["n_blue"]}
+    what = f"ooc rehearsal {OOC_REHEARSAL_MBP} Mbp"
+    nb = OOC_REHEARSAL_BUCKETS
+    t0 = time.perf_counter()
+    coll = synth_concat_collection(OOC_REHEARSAL_MBP)
+    t_synth = time.perf_counter() - t0
+    N = coll.bwt_len
+    stats = {}
+    t0 = time.perf_counter()
+    r = api.build(coll, PipelineConfig(m=32, check=True), device=dev,
+                  stats=stats)
+    t_grouped = time.perf_counter() - t0
+    if "groups.select" not in r.timings or {k: stats[k] for k in want} != want:
+        raise AssertionError(f"{what}: the grouped build's plan {_plan_of(stats)}")
+    grouped = _hashes(r)
+    gplan = {k: stats[k] for k in ("n_groups", "cap_run", "n_chunks")}
+    del r
+    with tempfile.TemporaryDirectory(prefix="debwt_ooc_rehearsal_") as work:
+        work = Path(work)
+        fs = _spill_fs(work, N)
+        t0 = time.perf_counter()
+        save_collection(coll, work / "coll")
+        t_save = time.perf_counter() - t0
+        del coll
+        special._BUF_CACHE.clear()
+        oocore._malloc_trim()
+        torch.cuda.empty_cache()
+        parent = {"rss_bytes": RssPeak._now(),
+                  "reserved_bytes": torch.cuda.memory_reserved()}
+        spill = work / "spill"
+        with RssPeak() as rss:
+            first = Child(work / "child1.log", work / "coll", spill,
+                          str(dev), "--buckets", str(nb))
+            w1 = watch(first.proc, spill, kill_at=OOC_REHEARSAL_KILL_AT,
+                       timeout=OOC_CHILD_TIMEOUT)
+            killed_at, l1 = w1["killed_at"], first.lines()
+            manifest = json.loads((spill / "manifest.json").read_text())
+            resumed_at = manifest.get("next_bucket")
+            if not (w1["returncode"] == -9 and killed_at is not None
+                    and killed_at >= OOC_REHEARSAL_KILL_AT and "RESULT" not in l1
+                    and manifest["stage"] == "B"
+                    and killed_at <= resumed_at < nb):
+                raise AssertionError(
+                    f"{what}: child 1 exited {w1['returncode']}, killed at "
+                    f"{killed_at}, manifest at {manifest['stage']} "
+                    f"{resumed_at}\n{first.tail()}")
+            second = Child(work / "child2.log", work / "coll", spill, str(dev),
+                           "--buckets", str(nb))
+            w2 = watch(second.proc, spill, timeout=OOC_CHILD_TIMEOUT)
+        left = sorted(os.listdir(spill))
+        l2 = second.lines()
+        if w2["returncode"] != 0 or "RESULT" not in l2:
+            raise AssertionError(f"{what}: the resumed child exited "
+                                 f"{w2['returncode']}\n{second.tail()}")
+    parent["rss_peak_bytes"] = rss.bytes
+    res = l2["RESULT"]
+    stats = res["stats"]
+    if l1["START"]["x2_sha"] != l2["START"]["x2_sha"] or l2["START"]["n"] != N:
+        raise AssertionError(f"{what}: the two children read different texts")
+    if l1["PASS_B"]["launches"] != {"window_keys": stats["n_chunks"],
+                                    "seg_scan_or": 0}:
+        raise AssertionError(f"{what}: child 1's pass A launched "
+                             f"{l1['PASS_B']['launches']}")
+    if (stats["n_chunks"], stats["n_buckets"], stats["oversized_buckets"]) != (
+            -(-N // OOC_CHUNK), nb, 0):
+        raise AssertionError(f"{what}: plan {_ooc_plan(stats)}")
+    if "pass A (resume attach)" not in stats["stage_s"]:
+        raise AssertionError(f"{what}: child 2 did not resume: {stats['stage_s']}")
+    _check_ooc_counts(stats, res["launches"], f"{what} resume", resumed=True)
+    if not 1 <= stats["classifications"] <= nb - resumed_at:
+        raise AssertionError(f"{what}: {stats['classifications']} classifications "
+                             f"on a resume at bucket {resumed_at}")
+    if {k: stats[k] for k in want} != want:
+        raise AssertionError(f"{what}: sp_len {stats['sp_len']} and n_blue "
+                             f"{stats['n_blue']}, the JAX package's {want}")
+    if (res["obj_sha"], res["sharp_sha"], res["dollar"]) != grouped:
+        raise AssertionError(f"{what}: differs from the grouped build")
+    if left:
+        raise AssertionError(f"{what}: files left: {left[:5]}")
+    for name, n in res["launches"].items():
+        rows[name]["launches_ooc_rehearsal_resume"] = n
+    rows["window_keys"]["launches_ooc_rehearsal_killed_pass_a"] = (
+        l1["PASS_B"]["launches"]["window_keys"])
+    spill_peak = max(w1["spill_peak"], w2["spill_peak"])
+    say(json.dumps({
+        "ooc_rehearsal_mbp": OOC_REHEARSAL_MBP, "n": N, "m": 32,
+        "input": "synth_concat", "synth_s": t_synth, "grouped_build_s": t_grouped,
+        "grouped_plan": gplan,
+        "hashes_equal_grouped": True, "sp_len_n_blue_equal_jax": list(want.values()),
+        "spill_fs": fs, "text_save_s": t_save, "parent": parent,
+        "killed_at": killed_at, "resumed_at": resumed_at, **_ooc_plan(stats),
+        "child1": {"seconds": w1["seconds"], "exit": w1["returncode"],
+                   "rss_peak_bytes_every_2s": w1["rss_peak"],
+                   "rlimit_nofile": l1["START"]["rlimit_nofile"],
+                   "load_s": l1["START"]["load_s"],
+                   "rss_peak_bytes_to_pass_b": l1["PASS_B"]["rss_peak_bytes"],
+                   "pass_a_launches": l1["PASS_B"]["launches"]},
+        "child2": {"seconds": w2["seconds"], "exit": w2["returncode"],
+                   "build_s": res["build_s"], "pack_s": res["pack_s"],
+                   "rss_peak_bytes": res["rss_peak_bytes"],
+                   "rss_peak_bytes_every_2s": w2["rss_peak"],
+                   "ru_maxrss_bytes_with_parents": res["ru_maxrss_bytes"],
+                   "stage_s": stats["stage_s"]},
+        "spill_peak_bytes": spill_peak,
+        "spill_peak_apparent_bytes": max(w1["spill_peak_apparent"],
+                                         w2["spill_peak_apparent"]),
+        "spill_peak_bytes_per_position": spill_peak / N,
+        "files_left": 0,
+    }))
+    # ---- kernel 2 at this tier's bucket rows ----
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    so = Parity("seg_scan_or")
+    shapes = _classification_scans(dev, gen, so, stats["max_bucket_rows"],
+                                   "ooc rehearsal bucket")
+    rows["seg_scan_or"]["ooc_rehearsal_shapes"] = shapes
+    rows["seg_scan_or"]["max_abs_err"] = max(rows["seg_scan_or"]["max_abs_err"],
+                                             so.max_abs_err)
+    for g in shapes:
+        say(f"[kernels] seg_scan_or {g['shape']}: {g['ms']:.4f} ms "
+            f"(bound {g['bound_ms']:.4f} ms by {g['bound_by']}, "
+            f"plain {g['plain_ms']:.4f} ms)")
+    say(f"[kernels] seg_scan_or at the ooc rehearsal bucket: {so.cases} cases equal")
     torch.cuda.empty_cache()
 
 
@@ -1740,16 +1961,27 @@ def main() -> int:
     say(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | {name} x{count}")
     rows: dict = {}
+    phase_s: dict = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        say(f"[phase] {name}: {phase_s[name]:.1f}s")
+        return out
+
     t_all = time.perf_counter()
-    phase_build()
-    phase_kernels(dev, rows)
-    phase_e2e(dev, rows)
-    phase_near_bound(dev)
-    phase_verify_count(dev)
-    phase_ooc(dev, rows, *phase_grouped(dev, rows))
-    phase_genome(dev, rows)
-    phase_dist(dev, rows)
-    phase_cli(dev, rows)
+    run("build", phase_build)
+    run("kernels", phase_kernels, dev, rows)
+    run("e2e", phase_e2e, dev, rows)
+    run("near_bound", phase_near_bound, dev)
+    run("verify", phase_verify_count, dev)
+    run("ooc", phase_ooc, dev, rows, *run("grouped", phase_grouped, dev, rows))
+    run("genome", phase_genome, dev, rows)
+    run("ooc_rehearsal", phase_ooc_rehearsal, dev, rows)
+    run("dist", phase_dist, dev, rows)
+    run("cli", phase_cli, dev, rows)
+    say(json.dumps({"phase_s": phase_s}))
     say(f"[done] {time.perf_counter() - t_all:.1f}s")
     say(json.dumps({"kernels": list(rows.values())}))
     say(card)

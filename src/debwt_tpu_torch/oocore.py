@@ -658,6 +658,10 @@ def build_bwt_ooc(
         if resuming_b:
             start_b = int(state["next_bucket"])
             base = int(state["base"])
+            # a kill between a bucket's manifest bump and its delete()
+            # below leaves that bucket's files behind
+            for b in range(start_b):
+                store.delete(b)
             bwt6 = np.memmap(bwt_path, dtype=np.uint8, mode="r+", shape=(N,))
             # drop any partial outputs from an interrupted bucket
             with open(sp_path, "ab") as f:

@@ -176,16 +176,20 @@ def test_writer_roundtrip(tmp_path, rng):
 
 
 def test_import_loads_no_jax():
-    """Importing every module of the port (and chip_smoke) loads neither
-    jax nor any module of the JAX package. Runs in a fresh interpreter,
-    since this test process has both loaded."""
+    """Importing every module of the port (and chip_smoke), and a toy
+    build of the out-of-core rehearsal's worker, load neither jax nor
+    any module of the JAX package. Runs in a fresh interpreter, since
+    this test process has both loaded."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, sys, tempfile\n"
         "import debwt_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    debwt_tpu_torch.__path__, 'debwt_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, torch_dist_worker, torch_ooc_worker\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    assert torch_ooc_worker.main(['0.004', d + '/sp', 'cpu',\n"
+        "        '--chunk', '1024', '--buckets', '4']) == 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'debwt_tpu')]\n"
         "assert not bad, bad\n"
@@ -202,9 +206,11 @@ def test_import_loads_no_jax():
         "print(len(names))\n"
     )
     root = os.path.join(SRC, "..")
+    tests = os.path.dirname(os.path.abspath(__file__))
     rc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
-        env={"PYTHONPATH": f"{SRC}{os.pathsep}{root}", "PATH": "/usr/bin:/bin",
+        env={"PYTHONPATH": os.pathsep.join([SRC, root, tests]),
+             "PATH": "/usr/bin:/bin",
              "HOME": os.environ.get("HOME", "/tmp")},
         cwd=root, timeout=120,
     )

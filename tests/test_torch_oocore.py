@@ -264,6 +264,38 @@ def test_checkpoint_resume_mid_pass_b(tmp_path, monkeypatch):
     _same_result(res, want)
 
 
+def test_checkpoint_resume_leaves_no_bucket_files(tmp_path, monkeypatch):
+    """Killed after bucket 3's manifest bump and before its files were
+    deleted (delete() raises on its 4th call): the resume starts at
+    bucket 4 and still removes bucket 3's files, so the directory is
+    empty at the end, with golden's and the JAX tier's bytes."""
+    coll = SequenceCollection.from_reads(random_reads(_rng(), 10, lo=50, hi=180))
+    d = tmp_path / "ck"
+    ooc = OocConfig(chunk=256, n_buckets=8, spill_dir=str(d), checkpoint=True)
+    real, calls = oocore._BucketStore.delete, {"n": 0}
+
+    def delete(self, b):
+        calls["n"] += 1
+        if calls["n"] == 4:
+            raise RuntimeError("simulated kill")
+        return real(self, b)
+
+    monkeypatch.setattr(oocore._BucketStore, "delete", delete)
+    with pytest.raises(RuntimeError, match="simulated kill"):
+        build_bwt_ooc(coll, PipelineConfig(m=16), ooc, device="cpu")
+    monkeypatch.undo()
+    with open(d / "manifest.json") as f:
+        assert '"next_bucket": 4' in f.read()
+    assert sorted(p.name for p in d.glob("bk3.*")) == ["bk3.k16", "bk3.key", "bk3.pos"]
+    stats = {}
+    res = build_bwt_ooc(coll, PipelineConfig(m=16), ooc, stats=stats, device="cpu")
+    assert "pass A (resume attach)" in stats["stage_s"]
+    assert os.listdir(d) == []
+    _same_result(res, golden_bwt(coll))
+    _same_result(res, joocore.build_bwt_ooc(
+        _jax_coll(coll), JaxConfig(m=16), joocore.OocConfig(chunk=256, n_buckets=8)))
+
+
 def test_checkpoint_done_runs_fresh(tmp_path, monkeypatch):
     """A completed manifest does not poison the next run."""
     coll = SequenceCollection.from_reads(random_reads(_rng(), 5, lo=40, hi=120))
