@@ -19,7 +19,10 @@ Phases, in order; any failure ends the script with a non-zero code:
            the scan cases twice over; window_keys' packed entry on
            word-offset slices of the words (the grouped tier's call) and
            seg_scan_or at the grouped tier's selection and classification
-           shapes; CUDA-event times at the main-path shapes beside the
+           shapes; window_keys_at (kernel 1 at gathered int64
+           positions) at the CPU tests' shapes and on rows laid out as
+           an out-of-core bucket's over a text past 2^32 positions;
+           CUDA-event times at the main-path shapes beside the
            bound, the plain version's time and a plain fill or copy of
            the same bytes
   e2e      the main path through api.build: a small collection against
@@ -82,12 +85,10 @@ Phases, in order; any failure ends the script with a non-zero code:
   ooc_rehearsal
            the out-of-core tier spilled with checkpoints, killed and
            resumed across processes (tools/rehearse_ooc.py's job):
-           synth_concat at 1000 Mbp (at 3000 Mbp the 57 GB spill would
-           pass the 45 GiB that one run may write to the disk of the
-           H100 machine this script was sized for) built on the
+           synth_concat at 1000 Mbp built on the
            grouped tier through api.build for the same-run hashes, its
            text written once to a disk-backed temporary directory
-           (tmpfs, or under 1.25 x 20 bytes a position free, fails),
+           (tmpfs, or under 1.25 x 8 bytes a position free, fails),
            this process's memory freed, then tests/torch_ooc_worker.py
            (OocConfig(chunk=2^26, n_buckets=256, spill_dir,
            checkpoint=True), check=True) in a child SIGKILLed from here
@@ -96,10 +97,29 @@ Phases, in order; any failure ends the script with a non-zero code:
            kernel-1 launch), launch kernel 2 three times a
            classification, classify no more than the buckets left, have
            ooc_mbp1000.0's sp_len and grouped_mbp1000.0's n_blue, the
-           grouped build's hashes, and leave the spill directory empty;
+           grouped build's hashes, leave the spill directory empty and
+           spill at most 7.5 bytes a position at the peak (bucket rows
+           are 6 bytes: a position's offset in its chunk and its
+           metadata; pass B re-derives the key);
            each child's seconds and peak RSS, the spill peak (sampled
            every 2 s), the resumed stage times; then seg_scan_or at the
            largest bucket's rows
+  ooc_past_max_n
+           the out-of-core tier where only it can go: synth_concat at
+           4300 Mbp (N = 4,300,000,004, at least grouped.MAX_N, which
+           the grouped tier refuses, and past 2^32) built whole by
+           tests/torch_ooc_worker.py in a child that makes the text
+           from its seed (65 chunks, 256 buckets, spill and
+           checkpoints, check=True): the character counts, one '$' and
+           3 '#', a 2^23-step LF walk from the end across position
+           2^32, kernel 1 once a chunk, its gathered form once and
+           kernel 2 three times a classification, no bucket oversized,
+           at most 7.5 spill bytes a position, no file left, and the
+           port's own hashes as first recorded (PAST_MAX_N_HASHES);
+           sp_len and n_blue beside the 3000 Mbp row scaled, the stage
+           split, the child's peak RSS and bytes written; then
+           window_keys_at at the largest bucket's rows against its
+           plain version, timed beside its bound
   dist     the multi-device tier (parallel.dist_build_bwt), one process a
            rank: through api.build(n_devices=1), one rank over NCCL at 4.6
            and 250 Mbp against the reference hashes (seconds, Mbp/s, stage
@@ -131,8 +151,10 @@ Phases, in order; any failure ends the script with a non-zero code:
            printed plan says and write files with the reference hashes
            (ref_mbp140.0, ref_mbp140.0_m24 for -k 24, ref_mbp4.6)
 
-The lines before the last are the `kernels` JSON object and the card's
-name and power limit; the last is {"ok": true, "device": {...}}.
+After the phases, one line gives the GiB each phase wrote to disk,
+its children's included, and their total. The lines before the last
+are the `kernels` JSON object and the card's name and power limit; the
+last is {"ok": true, "device": {...}}.
 Every run runs every phase. The script takes no arguments and imports
 nothing of JAX or of the JAX package.
 """
@@ -156,7 +178,7 @@ MAIN_R = MAIN_N_CAP + 128   # plus ns_cap: the row scans' length
 PALLAS_TILE = 8192          # the JAX kernels' tile, used by the CPU tests
 E2E_MBP = (4.6, 140.0)
 NEAR_BOUND_MBP = 410.0      # rows 469,762,176: the last bucket under 2^29
-EXPECTED_LAUNCHES = {"window_keys": 1, "seg_scan_or": 4}
+EXPECTED_LAUNCHES = {"window_keys": 1, "window_keys_at": 0, "seg_scan_or": 4}
 SEL_C = 1 << 27             # the grouped tier's default selection chunk
 SEL_R = SEL_C + 33          # its separator scan: C + k + 2 words at m = 32
 CLS_R = 402_653_184 + 64    # a classification: 600 Mbp in 2 groups + ns_cap
@@ -178,16 +200,27 @@ GENOME_HASHES = (
     "9de95ddf21d8dce6b441465b6035964d0e722f1f149b6bcaf52a00c4f2090d97",
     "eb56453b5bee26e43351f6794c7487aed1cd92e007bbc3d52680624f4b2e6eef",
     2_733_368_556)
-# the kill-and-resume rehearsal: tools/rehearse_ooc.py's size and knobs.
-# Not 3000 Mbp: its 57 GB of spill pass the 45 GiB that one run may write
-# to the disk of the H100 machine this script was sized for (freed
-# blocks count)
+# the kill-and-resume rehearsal: tools/rehearse_ooc.py's size and knobs
 OOC_REHEARSAL_MBP = 1000.0
 OOC_REHEARSAL_BUCKETS = 256
 OOC_REHEARSAL_KILL_AT = 128  # SIGKILL once the manifest reaches this bucket
-OOC_SPILL_BYTES = 20        # spill bytes a position: 18 of bucket rows, the
-#                             output's 1, the shared text's 1
+OOC_SPILL_BYTES = 8         # disk bytes a position: 6 of bucket rows, the
+#                             output's 1, the rehearsal's saved text's 1
+OOC_SPILL_MAX = 7.5         # most spill bytes a position at the peak
 OOC_CHILD_TIMEOUT = 600     # seconds an out-of-core child may take
+# the out-of-core tier where only it can go: synth_concat at 4300 Mbp,
+# N = 4,300,000,004 >= grouped.MAX_N and > 2^32, one whole build in a
+# child (tools/bench_ooc.py's knobs), an LF walk across position 2^32
+PAST_MAX_N_MBP = 4300.0
+PAST_MAX_N = 4_300_000_004
+PAST_MAX_N_VERIFY_STEPS = 1 << 23
+PAST_MAX_N_TIMEOUT = 900    # seconds its child may take
+# the port's own hashes of that build, as first recorded; not the
+# reference binary's
+PAST_MAX_N_HASHES = (
+    "4b3fcc8fe112a7fcc7e9939ed8e3e489a9339d209fb89319e6b0b5792bfba972",
+    "1cf0b555652fbc363729e68f3b9d788462f164b3b6600b065efa5852a51459ee",
+    3_917_836_742)
 RANK_TIMEOUT = 600          # seconds a rank process may take
 CLI_MBP = 140.0             # the cli phase's FASTA: every tier's CLI run
 CLI_SMALL_MBP = 4.6         # -k 12
@@ -196,6 +229,29 @@ CLI_TIMEOUT = 300           # seconds a CLI process may take
 
 def say(*a):
     print(*a, flush=True)
+
+
+# bytes a phase wrote that this process's own /proc entry does not hold:
+# its children's (their /proc/<pid>/io wchar, as they report it or as
+# it was last sampled) and an out-of-core build's spilled output, a
+# mapped file whose N bytes are all written (main reads the deltas)
+_WRITTEN = {"children_wchar": 0, "mapped": 0}
+
+
+def note_written(children_wchar: int = 0, mapped: int = 0):
+    _WRITTEN["children_wchar"] += children_wchar
+    _WRITTEN["mapped"] += mapped
+
+
+def own_wchar() -> int:
+    """Bytes this thread has passed to write calls: its own /proc task
+    entry, which holds no child's (/proc/self/io adds a reaped child's
+    on some kernels and not on others)."""
+    import threading
+
+    from torch_ooc_worker import io_bytes
+
+    return io_bytes(f"self/task/{threading.get_native_id()}").get("wchar", 0)
 
 
 def card_line() -> str:
@@ -374,6 +430,7 @@ def phase_kernels(dev, rows: dict):
         f"{ms:.4f} ms, at w=8 {ms_w8:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
         f"plain {plain:.4f} ms; zero_ of the keys' bytes {fill:.4f} ms)")
     say(f"[kernels] window_keys: {wk.cases} cases equal")
+    _window_keys_at_cases(dev, gen, rows)
 
     # ---- kernel 2: seg_scan_or (both directions) ----
     so = Parity("seg_scan_or")
@@ -456,6 +513,75 @@ def phase_kernels(dev, rows: dict):
     torch.cuda.empty_cache()
 
 
+def _bucket_positions(dev, gen, n_codes: int, R: int, chunk: int = OOC_CHUNK):
+    """R int64 text positions laid out as an out-of-core bucket's rows:
+    one ascending run a chunk of the text, about R / n_chunks rows each,
+    drawn at random inside the chunk."""
+    import torch
+
+    n_chunks = -(-n_codes // chunk)
+    per = -(-R // n_chunks)
+    runs = []
+    for ci in range(n_chunks):
+        lo, hi = ci * chunk, min(n_codes, (ci + 1) * chunk)
+        runs.append(torch.sort(torch.randint(lo, hi, (min(per, R - ci * per),),
+                                             generator=gen, device=dev)).values)
+    return torch.cat(runs)
+
+
+def _window_keys_at_cases(dev, gen, rows: dict):
+    """Kernel 1's gathered entry against its plain version, exact
+    equality: at the CPU tests' shapes (random positions in no order,
+    the first and the last whose window fits, windows past the words, a
+    negative position) and on 2^20 rows laid out as a bucket's over a
+    text of PAST_MAX_N codes, so that positions pass 2^32."""
+    import torch
+
+    from debwt_tpu_torch import ops
+    from debwt_tpu_torch.kernels.window_keys import (
+        window_keys_at, window_keys_at_plain, window_keys_plain,
+    )
+
+    wa = Parity("window_keys_at")
+    for n_codes in (37, 4096, 5000, 200_003):
+        for w in (2, 12, 24, 31, 32):
+            x = torch.randint(0, 4, (n_codes,), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            x2w = ops.pack_2bit_words(x)
+            n_out = n_codes - w + 1
+            pos = torch.cat([
+                torch.randint(0, n_out, (5000,), generator=gen, device=dev),
+                torch.tensor([0, n_out - 1, n_codes - 1, 16 * x2w.shape[0] + 7,
+                              -3], device=dev)])
+            got = window_keys_at(x2w, pos, w)
+            wa.check(got, window_keys_at_plain(x2w, pos, w),
+                     f"n_codes={n_codes} w={w}")
+            wa.check(got[:5000], window_keys_plain(x, w, n_out)[pos[:5000]],
+                     f"n_codes={n_codes} w={w} against every window's key")
+    words = _random_words(dev, gen, PAST_MAX_N + 32)
+    pos = _bucket_positions(dev, gen, PAST_MAX_N, 1 << 20)
+    assert int(pos.max()) >= 1 << 32
+    wa.check(window_keys_at(words, pos, 31), window_keys_at_plain(words, pos, 31),
+             f"2^20 bucket rows of a {PAST_MAX_N}-code text, w 31")
+    del words, pos
+    rows["window_keys_at"] = dict(
+        name="window_keys_at", route="cuda",
+        source="src/debwt_tpu_torch/csrc/window_keys.cu",
+        replaces="src/debwt_tpu/kernels/window_keys.py:98",
+        launches=None, max_abs_err=wa.max_abs_err, ms=None, plain_ms=None,
+        bound_ms=None, bound_by=None, library_ms=None)
+    say(f"[kernels] window_keys_at: {wa.cases} cases equal")
+    torch.cuda.empty_cache()
+
+
+def _random_words(dev, gen, n_codes: int):
+    """The packed words of n_codes random codes (every bit random)."""
+    import torch
+
+    return torch.randint(-(1 << 31), 1 << 31, (-(-n_codes // 16),),
+                         generator=gen, device=dev, dtype=torch.int32)
+
+
 def _scan_shape(so: Parity, words, stop: int, prefix: bool, shape: str) -> dict:
     """seg_scan_or on `words` checked against its plain version, then
     timed beside the bound and the plain version's time."""
@@ -523,6 +649,7 @@ def _counters():
     from debwt_tpu_torch.kernels import seg_or, window_keys
 
     return {"window_keys": window_keys.window_keys,
+            "window_keys_at": window_keys.window_keys_at,
             "seg_scan_or": seg_or.seg_scan_or}
 
 
@@ -723,7 +850,8 @@ def _check_grouped_counts(stats: dict, counts: dict, what: str):
     sel = stats["groups_selected"] * stats["n_chunks"]
     want = {"window_keys": sel,
             "seg_scan_or": sel + 3 * stats["groups_classified"]}
-    if counts != want or stats["launches"] != want or min(want.values()) < 1:
+    if (counts != dict(want, window_keys_at=0) or stats["launches"] != want
+            or min(want.values()) < 1):
         raise AssertionError(
             f"{what}: launches {counts} (tally {stats['launches']}), plan {want}"
         )
@@ -774,7 +902,7 @@ def phase_verify_count(dev):
     got_k, got_c = count_kmers(coll, m, device=dev)
     dt = time.perf_counter() - t0
     counts = _read_counts()
-    if counts != {"window_keys": 1, "seg_scan_or": 0}:
+    if counts != {"window_keys": 1, "window_keys_at": 0, "seg_scan_or": 0}:
         raise AssertionError(f"count_kmers: launches {counts}")
     if not (got_k.dtype == np.uint64 and np.array_equal(got_k, want_k)
             and np.array_equal(got_c, want_c)):
@@ -960,8 +1088,10 @@ class _Interrupted(Exception):
 
 def _check_ooc_counts(stats: dict, counts: dict, what: str, resumed=False):
     """Launches against the plan: kernel 1 once a chunk (none on a
-    resume past pass A), kernel 2 three times a device classification."""
+    resume past pass A), its gathered form once and kernel 2 three times
+    a device classification (no bucket oversized)."""
     want = {"window_keys": 0 if resumed else stats["n_chunks"],
+            "window_keys_at": stats["classifications"],
             "seg_scan_or": 3 * stats["classifications"]}
     if counts != want or stats["launches"] != want or want["seg_scan_or"] < 3:
         raise AssertionError(
@@ -1085,6 +1215,7 @@ def phase_ooc(dev, rows: dict, coll, hashes):
             raise AssertionError(f"ooc spill: files left: {left[:5]}")
         if stats["classifications"] != seen["calls"] - crash_at:
             raise AssertionError("ooc spill: the resume redid finished buckets")
+        note_written(mapped=coll.bwt_len)
         for name, n in counts.items():
             rows[name]["launches_ooc_resume"] = n
         say(json.dumps({
@@ -1409,10 +1540,12 @@ def phase_ooc_rehearsal(dev, rows: dict):
     parent["rss_peak_bytes"] = rss.bytes
     res = l2["RESULT"]
     stats = res["stats"]
+    note_written(children_wchar=w1["io_bytes"].get("wchar", 0)
+                 + res["io_bytes"].get("wchar", 0), mapped=N)
     if l1["START"]["x2_sha"] != l2["START"]["x2_sha"] or l2["START"]["n"] != N:
         raise AssertionError(f"{what}: the two children read different texts")
     if l1["PASS_B"]["launches"] != {"window_keys": stats["n_chunks"],
-                                    "seg_scan_or": 0}:
+                                    "window_keys_at": 1, "seg_scan_or": 0}:
         raise AssertionError(f"{what}: child 1's pass A launched "
                              f"{l1['PASS_B']['launches']}")
     if (stats["n_chunks"], stats["n_buckets"], stats["oversized_buckets"]) != (
@@ -1431,11 +1564,14 @@ def phase_ooc_rehearsal(dev, rows: dict):
         raise AssertionError(f"{what}: differs from the grouped build")
     if left:
         raise AssertionError(f"{what}: files left: {left[:5]}")
+    spill_peak = max(w1["spill_peak"], w2["spill_peak"])
+    if spill_peak > OOC_SPILL_MAX * N:
+        raise AssertionError(f"{what}: spill peak {spill_peak / N} bytes a "
+                             f"position, over {OOC_SPILL_MAX}")
     for name, n in res["launches"].items():
         rows[name]["launches_ooc_rehearsal_resume"] = n
     rows["window_keys"]["launches_ooc_rehearsal_killed_pass_a"] = (
         l1["PASS_B"]["launches"]["window_keys"])
-    spill_peak = max(w1["spill_peak"], w2["spill_peak"])
     say(json.dumps({
         "ooc_rehearsal_mbp": OOC_REHEARSAL_MBP, "n": N, "m": 32,
         "input": "synth_concat", "synth_s": t_synth, "grouped_build_s": t_grouped,
@@ -1448,13 +1584,14 @@ def phase_ooc_rehearsal(dev, rows: dict):
                    "rlimit_nofile": l1["START"]["rlimit_nofile"],
                    "load_s": l1["START"]["load_s"],
                    "rss_peak_bytes_to_pass_b": l1["PASS_B"]["rss_peak_bytes"],
-                   "pass_a_launches": l1["PASS_B"]["launches"]},
+                   "pass_a_launches": l1["PASS_B"]["launches"],
+                   "io_bytes_sampled_every_2s": w1["io_bytes"]},
         "child2": {"seconds": w2["seconds"], "exit": w2["returncode"],
                    "build_s": res["build_s"], "pack_s": res["pack_s"],
                    "rss_peak_bytes": res["rss_peak_bytes"],
                    "rss_peak_bytes_every_2s": w2["rss_peak"],
                    "ru_maxrss_bytes_with_parents": res["ru_maxrss_bytes"],
-                   "stage_s": stats["stage_s"]},
+                   "io_bytes": res["io_bytes"], "stage_s": stats["stage_s"]},
         "spill_peak_bytes": spill_peak,
         "spill_peak_apparent_bytes": max(w1["spill_peak_apparent"],
                                          w2["spill_peak_apparent"]),
@@ -1475,6 +1612,151 @@ def phase_ooc_rehearsal(dev, rows: dict):
             f"(bound {g['bound_ms']:.4f} ms by {g['bound_by']}, "
             f"plain {g['plain_ms']:.4f} ms)")
     say(f"[kernels] seg_scan_or at the ooc rehearsal bucket: {so.cases} cases equal")
+    torch.cuda.empty_cache()
+
+
+def phase_ooc_past_max_n(dev, rows: dict):
+    """The out-of-core tier where only it can go: synth_concat at
+    PAST_MAX_N_MBP (N >= grouped.MAX_N, which the grouped tier refuses,
+    and past 2^32) built whole in tests/torch_ooc_worker.py, a child
+    that makes the text from its seed (OocConfig(chunk=2^26,
+    n_buckets=256, spill_dir, checkpoint=True), check=True), then an LF
+    walk of PAST_MAX_N_VERIFY_STEPS steps from the text's end, across
+    position 2^32. It must pass the character counts, hold one '$' and
+    n_reads - 1 '#', launch kernel 1 once a chunk, its gathered form
+    once and kernel 2 three times a classification, classify no bucket
+    oversized, spill at most OOC_SPILL_MAX bytes a position, leave the
+    spill directory empty and give the port's recorded hashes; then
+    window_keys_at at the largest bucket's rows, against its plain
+    version and timed beside its bound."""
+    import os
+    import tempfile
+
+    import torch
+
+    from debwt_tpu_torch import grouped
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_ooc_worker import Child, watch
+
+    what = f"ooc past MAX_N {PAST_MAX_N_MBP} Mbp"
+    N = PAST_MAX_N
+    if not (N >= grouped.MAX_N and N > 1 << 32):
+        raise AssertionError(f"{what}: N = {N} is under MAX_N or 2^32")
+    if N - PAST_MAX_N_VERIFY_STEPS >= 1 << 32:
+        raise AssertionError(f"{what}: the LF walk does not reach 2^32")
+    cache = json.loads((ROOT / ".bench_cache.json").read_text())
+    sp_3000 = cache["grouped_mbp3000.0"]
+    parent = {"rss_bytes": RssPeak._now(),
+              "reserved_bytes": torch.cuda.memory_reserved()}
+    with tempfile.TemporaryDirectory(prefix="debwt_ooc_past_max_n_") as work:
+        work = Path(work)
+        fs = _spill_fs(work, N)
+        spill = work / "spill"
+        child = Child(work / "child.log", PAST_MAX_N_MBP, spill, str(dev),
+                      "--buckets", "256",
+                      "--verify-steps", str(PAST_MAX_N_VERIFY_STEPS))
+        with RssPeak() as rss:
+            w = watch(child.proc, spill, timeout=PAST_MAX_N_TIMEOUT)
+        left = sorted(os.listdir(spill))
+        lines = child.lines()
+        if w["returncode"] != 0 or "RESULT" not in lines:
+            raise AssertionError(f"{what}: the child exited {w['returncode']}"
+                                 f"\n{child.tail()}")
+    parent["rss_peak_bytes"] = rss.bytes
+    res, start = lines["RESULT"], lines["START"]
+    stats = res["stats"]
+    note_written(children_wchar=res["io_bytes"].get("wchar", 0), mapped=N)
+    n_reads = start["n_reads"]
+    if start["n"] != N or res["bwt_len"] != N:
+        raise AssertionError(f"{what}: N {start['n']}, bwt_len {res['bwt_len']}")
+    if not (res["n_sharp"] == n_reads - 1 == 3 and 0 <= res["dollar"] < N):
+        raise AssertionError(f"{what}: {res['n_sharp']} '#', '$' at {res['dollar']}")
+    verify = res["lf_verify"]
+    if not (verify and verify["ok"] and verify["steps"] == PAST_MAX_N_VERIFY_STEPS):
+        raise AssertionError(f"{what}: the LF walk {verify}")
+    if (stats["n_chunks"], stats["n_buckets"], stats["oversized_buckets"]) != (
+            -(-N // OOC_CHUNK), 256, 0):
+        raise AssertionError(f"{what}: plan {_ooc_plan(stats)}")
+    _check_ooc_counts(stats, res["launches"], what)
+    if res["calls"] != {"_chunk_keys": stats["n_chunks"],
+                        "_row_keys": stats["classifications"],
+                        "_classify_bucket": stats["classifications"]}:
+        raise AssertionError(f"{what}: calls {res['calls']}")
+    spill_peak = max(w["spill_peak"], res["spill_peak_bytes"])
+    if left or spill_peak > OOC_SPILL_MAX * N:
+        raise AssertionError(f"{what}: files left {left[:5]}, spill peak "
+                             f"{spill_peak / N} bytes a position")
+    hashes = (res["obj_sha"], res["sharp_sha"], res["dollar"])
+    for name, n in res["launches"].items():
+        rows[name]["launches_ooc_past_max_n"] = n
+    rows["window_keys_at"]["launches"] = res["launches"]["window_keys_at"]
+    say(json.dumps({
+        "ooc_past_max_n_mbp": PAST_MAX_N_MBP, "n": N, "m": 32,
+        "input": "synth_concat", "max_n": grouped.MAX_N,
+        "n_at_least_max_n": True, "n_past_2_32": True, "n_reads": n_reads,
+        "character_counts_equal": True, "n_sharp": res["n_sharp"],
+        "port_hashes": dict(zip(("obj_sha", "sharp_sha", "dollar"), hashes)),
+        "sp_len": stats["sp_len"], "n_blue": stats["n_blue"],
+        "sp_len_3000_scaled": sp_3000["sp_len"] * PAST_MAX_N_MBP / 3000.0,
+        "n_blue_3000_scaled": sp_3000["n_blue"] * PAST_MAX_N_MBP / 3000.0,
+        **_ooc_plan(stats), "stage_s": stats["stage_s"],
+        "child": {"seconds": w["seconds"], "load_s": start["load_s"],
+                  "build_s": res["build_s"], "pack_s": res["pack_s"],
+                  "rss_peak_bytes": res["rss_peak_bytes"],
+                  "rss_peak_bytes_every_2s": w["rss_peak"],
+                  "io_bytes_build": res["io_bytes_build"],
+                  "io_bytes": res["io_bytes"]},
+        "lf_verify": dict(verify, first_position=N - verify["steps"]),
+        "spill_fs": fs, "parent": parent,
+        "spill_peak_bytes": spill_peak,
+        "spill_peak_apparent_bytes": w["spill_peak_apparent"],
+        "spill_peak_bytes_per_position": spill_peak / N,
+        "files_left": 0,
+    }))
+    _window_keys_at_shape(dev, rows, stats["max_bucket_rows"])
+    if hashes != PAST_MAX_N_HASHES:
+        raise AssertionError(f"{what}: hashes {hashes}, the port's recorded "
+                             f"{PAST_MAX_N_HASHES}")
+
+
+def _window_keys_at_shape(dev, rows: dict, R: int):
+    """Kernel 1's gathered entry at R rows laid out as the largest
+    bucket's (one ascending run a chunk of a PAST_MAX_N-code text, w 31)
+    against its plain version, then timed beside its bound: each
+    position read once, each key written once, and each distinct 32-byte
+    sector of words that the rows' windows touch read once."""
+    import torch
+
+    from debwt_tpu_torch.kernels.window_keys import (
+        window_keys_at, window_keys_at_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    wa = Parity("window_keys_at")
+    words = _random_words(dev, gen, PAST_MAX_N + 32)
+    pos = _bucket_positions(dev, gen, PAST_MAX_N, R)
+    w = 31
+    what = f"R {R} rows as a bucket's, w {w}, positions to {int(pos.max())}"
+    wa.check(window_keys_at(words, pos, w), window_keys_at_plain(words, pos, w),
+             what)
+    j = pos >> 4                       # words j, j + 1, j + 2 (w <= 32)
+    sectors = torch.unique(torch.cat([(4 * j) >> 5, (4 * (j + 2) + 3) >> 5]))
+    n_bytes = 16 * R + 32 * sectors.shape[0]
+    del j, sectors
+    b_ms, b_by = bound_ms(n_bytes, 10 * R)
+    row = rows["window_keys_at"]
+    row.update(
+        max_abs_err=max(row["max_abs_err"], wa.max_abs_err),
+        ms=cuda_ms(lambda: window_keys_at(words, pos, w), reps=20),
+        plain_ms=cuda_ms(lambda: window_keys_at_plain(words, pos, w),
+                         reps=3, warm=1),
+        bound_ms=b_ms, bound_by=b_by, shape=what, bound_bytes=n_bytes)
+    del words, pos
+    say(f"[kernels] window_keys_at {what}: {row['ms']:.4f} ms (bound "
+        f"{b_ms:.4f} ms by {b_by}, {n_bytes} bytes; plain "
+        f"{row['plain_ms']:.4f} ms); {wa.cases} case equal")
     torch.cuda.empty_cache()
 
 
@@ -1507,7 +1789,7 @@ def phase_dist(dev, rows: dict):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = _read_counts()
-        if counts != {"window_keys": 1, "seg_scan_or": 0}:
+        if counts != {"window_keys": 1, "window_keys_at": 0, "seg_scan_or": 0}:
             raise AssertionError(f"dist {mbp} Mbp: launches {counts}")
         if hashes != (ref["obj_sha"], ref["sharp_sha"], ref["dollar"]):
             raise AssertionError(f"dist {mbp} Mbp: differs from the reference hashes")
@@ -1609,7 +1891,14 @@ try:
 finally:
     print("[launches] " + json.dumps({
         "window_keys": window_keys.window_keys.launches,
+        "window_keys_at": window_keys.window_keys_at.launches,
         "seg_scan_or": seg_or.seg_scan_or.launches}), file=sys.stderr)
+    try:
+        with open("/proc/self/io") as f:
+            io = dict(ln.split(":", 1) for ln in f.read().splitlines())
+        print("[io] " + json.dumps({"wchar": int(io["wchar"])}), file=sys.stderr)
+    except (OSError, ValueError, KeyError):
+        pass
 sys.exit(rc)
 """
 
@@ -1645,6 +1934,9 @@ def _run_cli(fa: Path, args: list, env: dict, dev, ref: dict) -> dict:
                              "reference hashes")
     lines = se.splitlines()
     launches = [ln for ln in lines if ln.startswith("[launches] ")]
+    for ln in lines:
+        if ln.startswith("[io] "):
+            note_written(children_wchar=json.loads(ln.split(" ", 1)[1])["wchar"])
     return {
         "args": args, "env": env,
         "route": [ln.split("route: ", 1)[1] for ln in lines if "route: " in ln],
@@ -1723,24 +2015,29 @@ def _dist_two_ranks(dev, rows: dict, ref: dict):
         dt = time.perf_counter() - t0
         spill_dirs = sorted(os.listdir(spill))
         left = [f for r in spill_dirs for f in os.listdir(spill / r)]
+    # each rank process's writes: its wchar after its last case
+    note_written(children_wchar=sum(
+        max(int(got[c["name"]][r]["io_wchar"]) for c in cases) for r in range(2)))
     for name, w in want.items():
         for r, g in enumerate(got[name]):
-            launches = {k: int(g["launches_" + k])
-                        for k in ("window_keys", "seg_scan_or")}
+            launches = {k: int(g["launches_" + k]) for k in _counters()}
             if _rank_hashes(g) != w:
                 raise AssertionError(f"gloo rank {r} {name}: hashes differ")
             if name != "ooc_dist" and launches != {"window_keys": 1,
+                                                   "window_keys_at": 0,
                                                    "seg_scan_or": 0}:
                 raise AssertionError(f"gloo rank {r} {name}: launches {launches}")
-            if name == "ooc_dist" and not (bool(g["sharded_rank"])
-                                           and launches["seg_scan_or"] >= 3):
-                raise AssertionError(f"gloo rank {r} {name}: not sharded")
+            if name == "ooc_dist" and not (
+                    bool(g["sharded_rank"]) and launches["seg_scan_or"] >= 3
+                    and 3 * launches["window_keys_at"] == launches["seg_scan_or"]):
+                raise AssertionError(f"gloo rank {r} {name}: not sharded, or "
+                                     f"launches {launches}")
     if spill_dirs != ["rank0", "rank1"] or left:
         raise AssertionError(
             f"ooc x dist spill directory holds {spill_dirs}, files {left[:5]}")
     rows["window_keys"]["launches_dist_two_ranks"] = int(
         got["dist_large"][0]["launches_window_keys"])
-    for k in ("window_keys", "seg_scan_or"):
+    for k in _counters():
         rows[k]["launches_ooc_dist"] = int(got["ooc_dist"][0]["launches_" + k])
     say(json.dumps({
         "dist_two_ranks_one_card": True, "backend": "gloo",
@@ -1748,8 +2045,7 @@ def _dist_two_ranks(dev, rows: dict, ref: dict):
         "builds": [dict(
             name=c["name"], mbp=c["mbp"], build_s=float(g["seconds"]),
             stage_s=json.loads(str(g["timings"])),
-            launches={k: int(g["launches_" + k])
-                      for k in ("window_keys", "seg_scan_or")},
+            launches={k: int(g["launches_" + k]) for k in _counters()},
             **({"sharded_rank": bool(g["sharded_rank"]),
                 "sp_len": int(g["sp_len"]), "spill_dirs": spill_dirs}
                if "sharded_rank" in g else {}))
@@ -1860,15 +2156,17 @@ def _check_cli_run(tier: str, run: dict):
             r"plan: G=(\d+) groups, cap=\d+, chunk=\d+ x (\d+)", plan)]
         if G < 4:
             raise AssertionError(f"cli grouped: {G} groups, want at least 4")
-        want = {"window_keys": G * n_chunks, "seg_scan_or": G * n_chunks + 3 * G}
+        want = {"window_keys": G * n_chunks, "window_keys_at": 0,
+                "seg_scan_or": G * n_chunks + 3 * G}
     elif tier == "ooc":
         n_chunks = int(re.search(r"pass A: (\d+) chunks", plan).group(1))
         n_cls = int(re.search(r"pass B: \d+ buckets, (\d+) device", plan).group(1))
-        want = {"window_keys": n_chunks, "seg_scan_or": 3 * n_cls}
+        want = {"window_keys": n_chunks, "window_keys_at": n_cls,
+                "seg_scan_or": 3 * n_cls}
         if run["verify"] != ["[debwt-torch] LF invertibility: OK"]:
             raise AssertionError(f"cli ooc: {run['verify']}")
     elif tier == "dist":
-        want = {"window_keys": 1, "seg_scan_or": 0}
+        want = {"window_keys": 1, "window_keys_at": 0, "seg_scan_or": 0}
     else:
         want = EXPECTED_LAUNCHES
     if run["launches"] != want:
@@ -1954,6 +2252,8 @@ def main() -> int:
         return 2
     import debwt_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    sys.path.insert(0, str(ROOT / "tests"))
+
     dev = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -1963,11 +2263,16 @@ def main() -> int:
     rows: dict = {}
     phase_s: dict = {}
 
+    written: dict = {}
+
     def run(name, fn, *args):
-        t0 = time.perf_counter()
+        t0, own0, w0 = time.perf_counter(), own_wchar(), dict(_WRITTEN)
         out = fn(*args)
         phase_s[name] = time.perf_counter() - t0
-        say(f"[phase] {name}: {phase_s[name]:.1f}s")
+        written[name] = {"own_wchar": own_wchar() - own0,
+                         **{k: v - w0[k] for k, v in _WRITTEN.items()}}
+        say(f"[phase] {name}: {phase_s[name]:.1f}s, wrote "
+            f"{sum(written[name].values()) / 2**30:.2f} GiB")
         return out
 
     t_all = time.perf_counter()
@@ -1979,9 +2284,15 @@ def main() -> int:
     run("ooc", phase_ooc, dev, rows, *run("grouped", phase_grouped, dev, rows))
     run("genome", phase_genome, dev, rows)
     run("ooc_rehearsal", phase_ooc_rehearsal, dev, rows)
+    run("ooc_past_max_n", phase_ooc_past_max_n, dev, rows)
     run("dist", phase_dist, dev, rows)
     run("cli", phase_cli, dev, rows)
     say(json.dumps({"phase_s": phase_s}))
+    # bytes each phase wrote: this process's write calls, its children's
+    # and the spilled outputs' mapped bytes
+    gib = {name: sum(v.values()) / 2**30 for name, v in written.items()}
+    say(json.dumps({"disk_written_gib": gib, "total_gib": sum(gib.values()),
+                    "bytes": written}))
     say(f"[done] {time.perf_counter() - t_all:.1f}s")
     say(json.dumps({"kernels": list(rows.values())}))
     say(card)

@@ -37,6 +37,16 @@
 // w = 32: 0.50 ms from packed words, 0.54 ms from uint8 codes, beside
 // 0.41 ms for a plain fill of the keys' bytes; the time no longer
 // follows w.
+//
+// A third entry, debwt_window_keys_at, is the same body at gathered
+// positions: out[i] is the key of the w-char window at text position
+// pos[i] (int64, any order), read from the packed text. The out-of-core
+// tier's pass B calls it on a bucket's rows, whose keys it does not keep
+// on disk. One thread a row reads its position, the (at most two) 32-byte
+// sectors that hold W[j], W[j+1], W[j+2] straight from device memory
+// through the read-only cache, and writes its key: bound by bytes, 8 of
+// position in, 8 of key out and a sector of words a row, since a bucket's
+// positions lie a few hundred codes apart and share no sector.
 
 #include <cstdint>
 
@@ -125,6 +135,28 @@ bool bad_args(long long n_codes, long long n_out, int w) {
   return w < 1 || w > kMaxW || n_out <= 0 || n_codes < n_out + w - 1;
 }
 
+// out[i] = the key of the w-char window at text position pos[i]; a word
+// outside [0, n_words) reads as 0, as in PackedLoader.
+__global__ void __launch_bounds__(kThreads)
+window_keys_at_kernel(const unsigned* __restrict__ words, long long n_words,
+                      const long long* __restrict__ pos, long long n,
+                      unsigned long long* __restrict__ out, int w) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const long long p = pos[i];
+  const long long j = p >> 4;            // arithmetic: a negative p stays < 0
+  const unsigned sh = 2u * static_cast<unsigned>(p & 15);
+  unsigned v[3];
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    const unsigned long long g = static_cast<unsigned long long>(j + t);
+    v[t] = g < static_cast<unsigned long long>(n_words) ? __ldg(words + g) : 0u;
+  }
+  const unsigned hi = __funnelshift_l(v[1], v[0], sh);
+  const unsigned lo = __funnelshift_l(v[2], v[1], sh);
+  out[i] = ((static_cast<unsigned long long>(hi) << 32) | lo) >> (2 * (32 - w));
+}
+
 }  // namespace
 
 // x: uint8[n_in] codes 0..3 at any byte address; out: uint64[n_out].
@@ -144,4 +176,21 @@ extern "C" int debwt_window_keys_packed(const void* words, long long n_words,
   }
   return launch(PackedLoader{static_cast<const unsigned*>(words), n_words}, out,
                 n_out, w, stream);
+}
+
+// words: uint32[n_words] as above; pos: int64[n] text positions;
+// out: uint64[n].
+extern "C" int debwt_window_keys_at(const void* words, long long n_words,
+                                    const void* pos, long long n, int w,
+                                    void* out, void* stream) {
+  if (w < 1 || w > kMaxW || n <= 0 || n_words <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  window_keys_at_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(words), n_words,
+      static_cast<const long long*>(pos), n,
+      static_cast<unsigned long long*>(out), w);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -24,6 +24,12 @@ ops.window_keys on int64, behind an unpack for the packed entry.
 `window_keys_words_replay` is the kernel's own index arithmetic in
 torch, tested where the kernel cannot run. Both entries count their
 launches in `window_keys.launches`.
+
+`window_keys_at` is the same body at gathered positions: the key of the
+w-char window at each of a tensor of int64 text positions, read from
+the packed words (the out-of-core tier's pass B, which keeps positions
+and not keys on disk). Its plain version `window_keys_at_plain` unpacks
+the w codes at each position; it counts in `window_keys_at.launches`.
 """
 
 from __future__ import annotations
@@ -94,6 +100,23 @@ def window_keys_words_replay(x2w: torch.Tensor, w: int, n_out: int) -> torch.Ten
     return key
 
 
+def window_keys_at_plain(x2w: torch.Tensor, pos: torch.Tensor, w: int) -> torch.Tensor:
+    """The key of the w-char window at each text position pos[i], one
+    code at a time: code q is bits 31 - 2 (q & 15) and 30 - 2 (q & 15)
+    of word q >> 4. A word outside the words reads as 0, as in the
+    kernel."""
+    W = x2w.to(torch.int64) & 0xFFFFFFFF   # the words' uint32 bits
+    n_words = W.shape[0]
+    key = torch.zeros(pos.shape[0], dtype=torch.int64, device=pos.device)
+    for t in range(w):
+        q = pos + t
+        g = q >> 4
+        word = torch.where((g >= 0) & (g < n_words),
+                           W[g.clamp(0, max(0, n_words - 1))], 0)
+        key = (key << 2) | ((word >> (30 - 2 * (q & 15))) & 3)
+    return key
+
+
 def _lib():
     lib = _build.load("window_keys")
     for fn in (lib.debwt_window_keys, lib.debwt_window_keys_packed):
@@ -103,6 +126,13 @@ def _lib():
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
+    fn = lib.debwt_window_keys_at
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -157,3 +187,36 @@ def window_keys_packed(x2w: torch.Tensor, w: int, n_out: int) -> torch.Tensor:
 
 
 window_keys.launches = 0   # launches of either entry
+
+
+def window_keys_at(x2w: torch.Tensor, pos: torch.Tensor, w: int) -> torch.Tensor:
+    """int64 keys of the w-char windows at the text positions `pos`
+    (1-D int64, any order) of the packed text x2w (1-D int32 words, the
+    layout of window_keys_packed). A code past the words reads as 0."""
+    _check_w(w)
+    if x2w.dim() != 1 or x2w.dtype != torch.int32:
+        raise ValueError(f"x2w must be 1-D int32, got {x2w.dtype} {tuple(x2w.shape)}")
+    if pos.dim() != 1 or pos.dtype != torch.int64:
+        raise ValueError(f"pos must be 1-D int64, got {pos.dtype} {tuple(pos.shape)}")
+    if x2w.device != pos.device:
+        raise ValueError(f"x2w on {x2w.device}, pos on {pos.device}")
+    if x2w.shape[0] == 0:
+        raise ValueError("x2w holds no words")
+    if pos.device.type == "cpu":
+        return window_keys_at_plain(x2w, pos, w)
+    if pos.device.type != "cuda":
+        raise ValueError(f"window_keys_at runs on cuda or cpu, not {pos.device}")
+    x2w, pos = x2w.contiguous(), pos.contiguous()
+    out = torch.empty(pos.shape[0], dtype=torch.int64, device=pos.device)
+    if pos.shape[0] == 0:
+        return out
+    rc = _lib().debwt_window_keys_at(
+        x2w.data_ptr(), x2w.shape[0], pos.data_ptr(), pos.shape[0], w,
+        out.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream,
+    )
+    _build.check(rc, "debwt_window_keys_at launch")
+    window_keys_at.launches += 1
+    return out
+
+
+window_keys_at.launches = 0

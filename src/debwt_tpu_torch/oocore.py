@@ -9,14 +9,19 @@ two caps (the text chunk and the key bucket) however large the
 collection is, and the working set between passes lives in host DRAM,
 or on disk when a spill directory is given:
 
+  text pack (host)        the text packed 2 bits a code, once, onto
+                          the device (N/4 bytes), for both passes
   pass A  (text chunks)   device: k-char node keys per position
                           (kernel 1); host: the native binner
                           (csrc/ooc_binner.cpp) derives each row's
                           metadata and bins it into key-range buckets by
                           sampled splitters (the analogue of mySort's
                           bucket histogram prefix sums, src/mySort.c:98-110)
-  pass B  (key buckets)   device: ONE sort per bucket + the engine's
-                          segment facts (kernel 2, three launches); the
+  pass B  (key buckets)   device: the rows' node keys again, from the
+                          packed text at their positions (kernel 1's
+                          gathered form, one launch), then ONE sort per
+                          bucket + the engine's segment facts (kernel 2,
+                          three launches); the
                           sorted row index inside bucket b plus the
                           bucket base IS the global BWT coordinate.
                           Buckets over the device bound take the
@@ -28,18 +33,22 @@ or on disk when a spill directory is given:
   blue fill               blue entries ordered by (block base, SP rank,
                           position) on the device, scattered on the host
 
-Coordinates are int64 on the HOST and chunk/bucket-local int32 on the
-DEVICE: no device array holds a global position, and global bases are
-added in NumPy (int64), so bases past 2^32 are exact.
+Coordinates are int64: a text position past 2^32 is exact on the host
+and on the device, where pass B moves a bucket's positions (int64) for
+kernel 1's gathered form. The sort operands are bucket-local int32, and
+global BWT bases are added in NumPy (int64).
 
 Representation, against the JAX module's: a node key is one int64 (the
 k <= 31 chars fill at most 62 bits, so it is non-negative and needs no
-top-bit flip) where JAX keeps a (hi, lo) uint32 pair; a bucket row is
-key int64, k16 uint16, pos int64 (18 bytes, as in JAX). Device arrays
-hold a bucket's own rows, with no padding to a static cap. The spill
-layout differs from the JAX package's, so the checkpoint fingerprint
-carries a version the JAX package never writes: neither package resumes
-the other's spill directory.
+top-bit flip) where JAX keeps a (hi, lo) uint32 pair. A stored bucket row
+is 6 bytes, against JAX's 18 (key, k16, pos): off uint32 (the position
+less its chunk's base) and k16 uint16. The store's runs[b, c] (rows of
+bucket b from chunk c) give each position back exactly, and pass B
+derives the key from the position. Device arrays hold a bucket's own
+rows, with no padding to a static cap. The spill layout differs from the
+JAX package's, so the checkpoint fingerprint carries a version the JAX
+package never writes: neither package resumes the other's spill
+directory, nor the port one of its own older layout.
 
 The grouped tier borrows the back half (`_sp_ranks_host`,
 `blue_coordinates`, `sp_string`, `blue_fill`).
@@ -63,6 +72,7 @@ from debwt_tpu_torch.bluesort import sp_suffix_ranks
 from debwt_tpu_torch.io import native
 from debwt_tpu_torch.kernels.seg_or import seg_scan_or
 from debwt_tpu_torch.kernels.window_keys import window_keys as _wk_counter
+from debwt_tpu_torch.kernels.window_keys import window_keys_at as _wk_at_counter
 from debwt_tpu_torch.pipeline import BwtResult, _bucket, _pow2, resolve_device
 from debwt_tpu_torch.special import build_special
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
@@ -74,8 +84,12 @@ U8 = torch.uint8
 SP_CAP = 1 << 28
 
 # The JAX package's fingerprint ends in 2 (its splitter format); the
-# port's spill layout (int64 keys) is its own, version 1 of this tag.
-_SPILL_LAYOUT = (1 << 32) | 1
+# port's spill layout is its own: version 1 of this tag held 18-byte
+# rows (key, k16, pos), version 2 the 6-byte rows (off, k16) and runs.
+_SPILL_LAYOUT = (1 << 32) | 2
+
+# codes packed a block at a time onto the device (a multiple of 16)
+_PACK_BLOCK = 1 << 26
 
 
 def _malloc_trim():
@@ -126,13 +140,38 @@ class OocConfig:
 # ---------------------------------------------------------------------------
 
 
+def _pack_text(x2p: np.ndarray, n_codes: int, dev) -> torch.Tensor:
+    """int32 words (ops.pack_2bit_words_host's layout) of x2p on `dev`,
+    T past its end up to n_codes codes; separators are T in x2. Packed
+    _PACK_BLOCK codes at a time, so the host holds no copy of the text."""
+    n_words = -(-n_codes // 16)
+    words = torch.empty(n_words, dtype=torch.int32, device=dev)
+    buf = np.empty(_PACK_BLOCK, dtype=np.uint8)
+    for s in range(0, 16 * n_words, _PACK_BLOCK):
+        e = min(s + _PACK_BLOCK, 16 * n_words)
+        take = max(0, min(e, x2p.shape[0]) - s)
+        buf[:take] = x2p[s : s + take]
+        buf[take : e - s] = K.T
+        blk = ops.pack_2bit_words_host(buf[: e - s]).view(np.int32)
+        words[s // 16 : e // 16].copy_(torch.from_numpy(blk))
+    return words
+
+
 def _chunk_keys(kw: torch.Tensor, k: int, C: int) -> torch.Tensor:
     """int64 node keys (k chars, < 2^62) of the C positions of one text
     chunk: one launch of kernel 1.
 
-    kw: int32 words of pack_2bit_words_host over the chunk's C + k
-    chars (a k-char forward halo; separators stored as T)."""
+    kw: int32 words of the packed text from the chunk's first position
+    on, at least C + k - 1 codes (separators stored as T)."""
     return ops.window_keys_packed(kw, k, C)
+
+
+def _row_keys(words: torch.Tensor, pos: np.ndarray, k: int) -> torch.Tensor:
+    """int64 node keys of the rows at the text positions `pos` (host
+    int64), on the device of the packed text `words`: one launch of
+    kernel 1's gathered form."""
+    pos_d = torch.from_numpy(np.ascontiguousarray(pos, dtype=np.int64))
+    return ops.window_keys_at(words, pos_d.to(words.device), k)
 
 
 def sample_splitters(x2: np.ndarray, n: int, c: int, seed: int = 17,
@@ -189,15 +228,21 @@ def _bin_rows_numpy(key, c0: int, sep, x2p, N: int, splitters,
 
 class _BucketStore:
     """Per-bucket row spill: host-DRAM lists, or append-only files
-    under spill_dir (one file per bucket per column). `reopen=True`
-    attaches to a completed pass-A spill (checkpoint resume) instead
-    of truncating it."""
+    under spill_dir (one file per bucket per column). A row is 6 bytes:
+    off (uint32, its position less its chunk's base) and k16 (uint16).
+    Pass A appends each chunk's rows of a bucket as one run, chunks in
+    order, so runs[b, c] (the rows of bucket b from chunk c) gives every
+    position back exactly as int64. `reopen=True` attaches to a
+    completed pass-A spill (checkpoint resume) instead of truncating it;
+    the caller then sets `runs` from the manifest."""
 
-    COLS = (("key", np.int64), ("k16", np.uint16), ("pos", np.int64))
+    COLS = (("off", np.uint32), ("k16", np.uint16))
 
-    def __init__(self, n_buckets: int, spill_dir: str | None,
-                 reopen: bool = False):
+    def __init__(self, n_buckets: int, n_chunks: int, chunk: int,
+                 spill_dir: str | None, reopen: bool = False):
+        assert chunk <= 1 << 32, chunk
         self.n = n_buckets
+        self.chunk = chunk
         self.dir = spill_dir
         if spill_dir:
             os.makedirs(spill_dir, exist_ok=True)
@@ -210,14 +255,25 @@ class _BucketStore:
             self._mem = [
                 {c: [] for c, _ in self.COLS} for _ in range(n_buckets)
             ]
-        self.sizes = np.zeros(n_buckets, dtype=np.int64)
+        self.runs = np.zeros((n_buckets, n_chunks), dtype=np.int64)
+
+    @property
+    def sizes(self) -> np.ndarray:
+        return self.runs.sum(axis=1)
 
     def _path(self, b: int, c: str) -> str:
         return os.path.join(self.dir, f"bk{b}.{c}")
 
-    def append(self, b: int, key, k16, pos):
-        self.sizes[b] += key.shape[0]
-        cols = dict(key=key, k16=k16, pos=pos)
+    def append(self, b: int, ci: int, k16, pos):
+        """Bucket b's rows from chunk ci: int64 positions `pos`,
+        ascending, in [ci * chunk, (ci + 1) * chunk), after every
+        earlier chunk's rows of b and before any later one's."""
+        n = pos.shape[0]
+        c0 = ci * self.chunk
+        assert not self.runs[b, ci:].any(), (b, ci)
+        assert n == 0 or c0 <= pos[0] <= pos[-1] < c0 + self.chunk, (ci, pos[:1])
+        self.runs[b, ci] = n
+        cols = dict(off=(pos - np.int64(c0)).astype(np.uint32), k16=k16)
         for c, dt in self.COLS:
             if self.dir:
                 self._fh[(b, c)].write(
@@ -227,38 +283,47 @@ class _BucketStore:
                 self._mem[b][c].append(cols[c].astype(dt))
 
     def load(self, b: int, consume: bool = True, staging: dict | None = None):
-        """Bucket b's rows (key, k16, pos); consume=True deletes them
-        (pass consume=False under checkpointing and call delete(b) after
-        the manifest records the bucket complete). `staging`, when
-        given, maps column name -> a preallocated array of >= bucket
-        rows: files are read INTO it (bounded, alloc-free) and views are
-        returned."""
+        """Bucket b's rows (k16 uint16, pos int64); consume=True deletes
+        them (pass consume=False under checkpointing and call delete(b)
+        after the manifest records the bucket complete). `staging`, when
+        given, maps "off", "k16" and "pos" to preallocated arrays of >=
+        bucket rows: files are read INTO them (bounded, alloc-free) and
+        views are returned."""
+        rows = int(self.runs[b].sum())
         if self.dir:
-            out = {}
+            cols = {}
             for c, dt in self.COLS:
                 fh = self._fh.get((b, c))
                 if fh is not None:
                     fh.close()
                 path = self._path(b, c)
                 if staging is not None:
-                    rows = int(self.sizes[b])
                     view = staging[c][:rows]
                     with open(path, "rb") as f:
                         got = f.readinto(memoryview(view).cast("B"))
                     assert got == rows * view.dtype.itemsize, (got, rows)
-                    out[c] = view
+                    cols[c] = view
                 else:
-                    out[c] = np.fromfile(path, dtype=dt)
+                    cols[c] = np.fromfile(path, dtype=dt)
                 if consume:
                     os.unlink(path)   # deleted as consumed
-            return out["key"], out["k16"], out["pos"]
-        cols = self._mem[b]
-        out = tuple(
-            np.concatenate(cols[c]) if cols[c] else np.empty(0, dt)
-            for c, dt in self.COLS
-        )
-        self._mem[b] = None   # release as consumed
-        return out
+        else:
+            cols = {
+                c: np.concatenate(self._mem[b][c]) if self._mem[b][c]
+                else np.empty(0, dt)
+                for c, dt in self.COLS
+            }
+            self._mem[b] = None   # release as consumed
+        assert cols["off"].shape[0] == rows, (cols["off"].shape, rows)
+        pos = (staging["pos"][:rows] if staging is not None
+               else np.empty(rows, dtype=np.int64))
+        s = 0
+        for ci in np.flatnonzero(self.runs[b]):
+            e = s + int(self.runs[b, ci])
+            np.add(cols["off"][s:e], np.int64(ci * self.chunk), out=pos[s:e],
+                   dtype=np.int64)
+            s = e
+        return cols["k16"], pos
 
     def delete(self, b: int):
         if self.dir:
@@ -515,8 +580,9 @@ def build_bwt_ooc(
 
     stats, when given, is filled with the JAX package's keys
     {'bucket_cap', 'chunk', 'n_chunks', 'sp_len', 'n_blue',
-    'sharded_rank', 'stage_s'} and the port's 'launches' (both kernels'
-    launches in this build), 'n_buckets', 'max_bucket_rows',
+    'sharded_rank', 'stage_s'} and the port's 'launches' (the kernels'
+    launches in this build: kernel 1 in pass A, its gathered form in
+    pass B, kernel 2), 'n_buckets', 'max_bucket_rows',
     'classifications' (device classifications in this run) and
     'oversized_buckets'."""
     config = config or PipelineConfig()
@@ -530,7 +596,8 @@ def build_bwt_ooc(
     trace = os.environ.get("DEBWT_TRACE") == "1"
     timings: dict = {}
     _t0 = [time.time()]
-    launches0 = (_wk_counter.launches, seg_scan_or.launches)
+    launches0 = (_wk_counter.launches, _wk_at_counter.launches,
+                 seg_scan_or.launches)
 
     def _say(msg):
         if trace:
@@ -566,46 +633,44 @@ def build_bwt_ooc(
         splitters = sample_splitters(coll.x2, nb, split_c)
     x2p = np.concatenate([coll.x2, np.full(K.TAIL_PAD, K.T, dtype=np.uint8)])
     sep = np.ascontiguousarray(coll.sep, dtype=np.int64)  # sep[-1] == N-1
+    # the packed text on the device, for pass A's chunks (each reads C +
+    # k - 1 codes from its base) and pass B's rows; a resume packs anew
+    words = _pack_text(x2p, max(x2p.shape[0], n_chunks * C + k), dev)
+    _mark("text pack (host)")
 
     # ---- pass A: keys on the device, metadata + binning on the host ----
     if state is not None:
-        store = _BucketStore(nb, ooc.spill_dir, reopen=True)
-        store.sizes = np.asarray(state["sizes"], dtype=np.int64)
+        store = _BucketStore(nb, n_chunks, C, ooc.spill_dir, reopen=True)
+        store.runs = np.asarray(state["runs"], dtype=np.int64).reshape(nb, n_chunks)
     else:
-        store = _BucketStore(nb, ooc.spill_dir)
+        store = _BucketStore(nb, n_chunks, C, ooc.spill_dir)
 
-    def _bin_rows(c0, C_real, keys_d):
+    def _bin_rows(ci, C_real, keys_d):
         key = keys_d[:C_real].cpu().numpy()
-        o_key, o_k16, o_pos, cnts = native.ooc_bin(
-            key, c0, sep, x2p, N, splitters, split_c, k
+        _o_key, o_k16, o_pos, cnts = native.ooc_bin(
+            key, ci * C, sep, x2p, N, splitters, split_c, k
         )
-        del key
+        del key, _o_key
         s = 0
         for b in range(nb):
             e = s + int(cnts[b])
             if e > s:
-                store.append(b, o_key[s:e], o_k16[s:e], o_pos[s:e])
+                store.append(b, ci, o_k16[s:e], o_pos[s:e])
             s = e
 
     if state is None:
-        pending = None   # (c0, C_real, device keys): one-deep pipeline,
+        pending = None   # (ci, C_real, device keys): one-deep pipeline,
         #                  chunk i+1's keys launch before chunk i's binning
-        buf = np.empty(C + k, dtype=np.uint8)
         for ci in range(n_chunks):
-            c0 = ci * C
-            take = min(C + k, x2p.shape[0] - c0)
-            buf[:take] = x2p[c0 : c0 + take]
-            buf[take:] = K.T
-            kw = torch.from_numpy(
-                ops.pack_2bit_words_host(buf).view(np.int32)
-            ).to(dev)
-            keys = _chunk_keys(kw, k, C)
-            del kw
+            # the chunk's keys from the word that holds its first code
+            j0, o = divmod(ci * C, 16)
+            keys = _chunk_keys(
+                words[j0 : j0 + -(-(o + C + k - 1) // 16)], k, o + C)[o:]
             if pending is not None:
                 _bin_rows(*pending)
                 _malloc_trim()
-            pending = (c0, min(C, N - c0), keys)
-        del buf, keys
+            pending = (ci, min(C, N - ci * C), keys)
+        del keys
         _bin_rows(*pending)
         del pending
         _malloc_trim()
@@ -616,7 +681,7 @@ def build_bwt_ooc(
         if ckpt:
             state = {
                 "fingerprint": fp, "stage": "A",
-                "sizes": store.sizes.tolist(),
+                "runs": store.runs.tolist(),
                 "splitters": splitters.tolist(),
             }
             _ckpt_save(ooc.spill_dir, state)
@@ -697,10 +762,10 @@ def build_bwt_ooc(
     # GB-scale allocations
     dev_rows = min(cap, max_rows)
     staging = (
-        {c: np.empty(dev_rows, dt) for c, dt in _BucketStore.COLS}
+        {c: np.empty(dev_rows, dt)
+         for c, dt in _BucketStore.COLS + (("pos", np.int64),)}
         if store.dir else None
     )
-    key_b = np.empty(dev_rows, np.int64)
     k16_b = np.empty(dev_rows, np.int32)
     ord_b = np.empty(dev_rows, np.int32)
     arange_b = np.arange(dev_rows, dtype=np.int32)
@@ -722,22 +787,24 @@ def build_bwt_ooc(
             if b_blue is not None:
                 blue_parts.append(b_blue)
 
-    def _bucket_device(key, k16, pos, s_idx):
+    def _bucket_device(k16, pos, s_idx):
         """One device classification of <= cap rows (mains + specials),
-        writing fills at base_box[0] and emitting SP/blue entries."""
+        writing fills at base_box[0] and emitting SP/blue entries. The
+        main rows' keys come from the packed text at their positions."""
         nonlocal n_classified
-        nmain = key.shape[0]
+        nmain = pos.shape[0]
         n_rows = nmain + s_idx.shape[0]
         bb = base_box[0]
-        key_b[:nmain] = key
-        key_b[nmain:n_rows] = spec_key[s_idx]
+        r_key = torch.cat([_row_keys(words, pos, k),
+                           torch.from_numpy(spec_key[s_idx]).to(dev)])
         k16_b[:nmain] = k16
         k16_b[nmain:n_rows] = 1 << 12
         ord_b[:nmain] = arange_b[:nmain]
         ord_b[nmain:n_rows] = spec_ord[s_idx]
         fill6, mo_row, mi_row, seg_start, ord_s, bwt3, total = _classify_bucket(
-            *(torch.from_numpy(a[:n_rows]).to(dev) for a in (key_b, k16_b, ord_b))
+            r_key, *(torch.from_numpy(a[:n_rows]).to(dev) for a in (k16_b, ord_b))
         )
+        del r_key
         n_classified += 1
         assert total == n_rows, (total, n_rows)
         bwt6[bb : bb + total] = fill6.cpu().numpy()
@@ -794,9 +861,13 @@ def build_bwt_ooc(
         """Key-skew fallback: sort the bucket's rows by node key on the
         host, classify node-boundary slabs of <= cap rows through the
         device path, and reduce single-key giant runs directly."""
-        key, k16, pos = store.load(b, consume=not ckpt)
-        nmain = key.shape[0]
-        allk = np.concatenate([key, spec_key[s_idx_all]])
+        k16, pos = store.load(b, consume=not ckpt)
+        nmain = pos.shape[0]
+        allk = np.empty(nmain + s_idx_all.shape[0], dtype=np.int64)
+        for s in range(0, nmain, cap):    # device keys, cap rows at a time
+            allk[s : min(s + cap, nmain)] = _row_keys(
+                words, pos[s : s + cap], k).cpu().numpy()
+        allk[nmain:] = spec_key[s_idx_all]
         order = np.argsort(allk, kind="stable")
         allk_s = allk[order]
         run_start = np.nonzero(np.concatenate(
@@ -820,7 +891,7 @@ def build_bwt_ooc(
             rows = order[s0 : run_end[j]]
             mrows = rows[rows < nmain]
             srows = rows[rows >= nmain] - nmain
-            _bucket_device(key[mrows], k16[mrows], pos[mrows], s_idx_all[srows])
+            _bucket_device(k16[mrows], pos[mrows], s_idx_all[srows])
             i = j + 1
 
     for b in range(start_b, nb):
@@ -832,8 +903,8 @@ def build_bwt_ooc(
             n_oversized += 1
             _oversized_bucket(b, s_idx)
         elif n_tot > 0:
-            key, k16, pos = store.load(b, consume=not ckpt, staging=staging)
-            _bucket_device(key, k16, pos, s_idx)
+            k16, pos = store.load(b, consume=not ckpt, staging=staging)
+            _bucket_device(k16, pos, s_idx)
         if ckpt:
             sp_f.flush()
             for f in bl_f:
@@ -843,7 +914,7 @@ def build_bwt_ooc(
                 "fingerprint": fp, "stage": "B", "next_bucket": b + 1,
                 "base": int(base_box[0]), "sp_count": counters["sp"],
                 "blue_count": counters["blue"],
-                "sizes": store.sizes.tolist(),
+                "runs": store.runs.tolist(),
                 "splitters": splitters.tolist(),
             }
             _ckpt_save(ooc.spill_dir, state)
@@ -852,7 +923,7 @@ def build_bwt_ooc(
         store.delete(b)
         _malloc_trim()
     assert base_box[0] == N, (base_box[0], N)
-    del staging, key_b, k16_b, ord_b, arange_b
+    del staging, k16_b, ord_b, arange_b, words
     _mark("pass B (bucket sorts)")
     _say(f"pass B: {nb} buckets, {n_classified} device classifications of "
          f"<= {dev_rows} rows, {n_oversized} oversized")
@@ -895,7 +966,8 @@ def build_bwt_ooc(
             classifications=n_classified, oversized_buckets=n_oversized,
             launches={
                 "window_keys": _wk_counter.launches - launches0[0],
-                "seg_scan_or": seg_scan_or.launches - launches0[1],
+                "window_keys_at": _wk_at_counter.launches - launches0[1],
+                "seg_scan_or": seg_scan_or.launches - launches0[2],
             },
         )
     if ckpt:

@@ -21,6 +21,9 @@ import torch
 
 from debwt_tpu_torch.kernels.window_keys import window_keys as _window_keys
 from debwt_tpu_torch.kernels.window_keys import (
+    window_keys_at as _window_keys_at,
+)
+from debwt_tpu_torch.kernels.window_keys import (
     window_keys_packed as _window_keys_packed,
 )
 
@@ -41,6 +44,13 @@ def window_keys_packed(x2w: torch.Tensor, w: int, n_out: int) -> torch.Tensor:
     unpack: kernel 1's packed entry on CUDA, unpack plus the plain
     version on the CPU."""
     return _window_keys_packed(x2w, w, n_out)
+
+
+def window_keys_at(x2w: torch.Tensor, pos: torch.Tensor, w: int) -> torch.Tensor:
+    """The keys of the w-char windows at the int64 text positions `pos`
+    of the packed text x2w: kernel 1's gathered entry on CUDA, its plain
+    version (an unpack of the w codes at each position) on the CPU."""
+    return _window_keys_at(x2w, pos, w)
 
 
 def _sort_words(keys):

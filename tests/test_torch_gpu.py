@@ -99,6 +99,27 @@ def test_window_keys_kernel_tail_isolated(cuda, gen):
                        wk.window_keys(other, w, n_out))
 
 
+@pytest.mark.parametrize("w", [2, 12, 24, 31, 32])
+@pytest.mark.parametrize("n_codes", [37, 4096, 200_003])
+def test_window_keys_at_kernel_matches_plain(cuda, gen, w, n_codes):
+    """The gathered entry at random positions in no order, the first and
+    last whose window fits, windows that run past the words and a
+    negative position (both read code 0 there)."""
+    x = torch.randint(0, 4, (n_codes,), generator=gen, device=cuda,
+                      dtype=torch.uint8)
+    x2w = pack_2bit_words(x)
+    n_out = n_codes - w + 1
+    pos = torch.cat([
+        torch.randint(0, n_out, (5000,), generator=gen, device=cuda),
+        torch.tensor([0, n_out - 1, n_codes - 1, 16 * x2w.shape[0] + 40, -5],
+                     device=cuda)])
+    before = wk.window_keys_at.launches
+    got = wk.window_keys_at(x2w, pos, w)
+    assert wk.window_keys_at.launches == before + 1
+    assert torch.equal(got, wk.window_keys_at_plain(x2w, pos, w))
+    assert torch.equal(got[:5000], wk.window_keys_plain(x, w, n_out)[pos[:5000]])
+
+
 @pytest.mark.parametrize("stop", [1 << 6, 1 << 29])
 @pytest.mark.parametrize("prefix", [False, True])
 @pytest.mark.parametrize(
@@ -264,18 +285,26 @@ def test_api_routes_to_grouped_on_card(cuda, monkeypatch):
 ])
 def test_ooc_on_card_matches_golden(cuda, m, fields):
     """The out-of-core tier on the card: golden bytes, kernel 1 once a
-    chunk and kernel 2 three times a device classification."""
+    chunk, its gathered form once a device classification (and once an
+    oversized bucket's cap rows) and kernel 2 three times a device
+    classification."""
     coll = SequenceCollection.from_reads(_repeat_reads(m + fields["n_buckets"]))
     stats = {}
-    wk.window_keys.launches = seg_or.seg_scan_or.launches = 0
+    wk.window_keys.launches = wk.window_keys_at.launches = 0
+    seg_or.seg_scan_or.launches = 0
     r = build_bwt_ooc(coll, PipelineConfig(m=m, check=True), OocConfig(**fields),
                       stats=stats)
-    want = {"window_keys": stats["n_chunks"],
+    n_at = stats["launches"]["window_keys_at"]
+    want = {"window_keys": stats["n_chunks"], "window_keys_at": n_at,
             "seg_scan_or": 3 * stats["classifications"]}
     assert stats["n_chunks"] > 1 and stats["classifications"] >= 1
-    assert (wk.window_keys.launches, seg_or.seg_scan_or.launches) == (
-        want["window_keys"], want["seg_scan_or"])
+    assert (wk.window_keys.launches, wk.window_keys_at.launches,
+            seg_or.seg_scan_or.launches) == tuple(want.values())
     assert stats["launches"] == want
+    if "bucket_cap" in fields:
+        assert n_at > stats["classifications"]
+    else:
+        assert n_at == stats["classifications"]
     assert (stats["oversized_buckets"] > 0) == ("bucket_cap" in fields)
     g = golden_bwt(coll)
     assert r.packed() == g.packed()
@@ -305,6 +334,7 @@ def test_ooc_on_card_resumes_mid_pass_b(cuda, monkeypatch, tmp_path):
     stats = {}
     r = build_bwt_ooc(coll, PipelineConfig(m=32), ooc, stats=stats)
     assert stats["launches"]["window_keys"] == 0
+    assert stats["launches"]["window_keys_at"] == stats["classifications"]
     assert stats["launches"]["seg_scan_or"] == 3 * stats["classifications"]
     assert r.packed() == golden_bwt(coll).packed()
     assert list((tmp_path / "ck").glob("bk*")) == []

@@ -26,6 +26,8 @@ from debwt_tpu_torch import engine as tengine
 from debwt_tpu_torch.kernels import seg_or as tseg
 from debwt_tpu_torch.kernels.window_keys import (
     window_keys,
+    window_keys_at,
+    window_keys_at_plain,
     window_keys_packed,
     window_keys_packed_plain,
     window_keys_words_replay,
@@ -129,6 +131,54 @@ def test_window_keys_rejects_short_input():
         window_keys_packed(torch.zeros(2, dtype=torch.int32), 8, 26)
     with pytest.raises(ValueError, match="int32"):
         window_keys_packed(torch.zeros(2, dtype=torch.int64), 8, 5)
+
+
+@pytest.mark.parametrize("n_codes", [5000, 4096, 37])
+@pytest.mark.parametrize("w", [2, 12, 24, 32])
+def test_window_keys_at_matches_jax(rng, w, n_codes):
+    """The gathered entry (on the CPU its plain version) at random
+    positions, in no order and repeated, with the first and the last
+    position whose window fits, against the JAX package's keys of every
+    window read at those positions (its (hi, lo) pair)."""
+    x = rng.integers(0, 4, size=n_codes).astype(np.uint8)
+    n_out = n_codes - w + 1
+    hi, lo = jops.window_keys(jnp.asarray(x), w)
+    want = keys_from_pair(np.asarray(hi), np.asarray(lo))[:n_out]
+    pos = np.concatenate([rng.integers(0, n_out, size=300), [n_out - 1, 0, n_out - 1]])
+    x2w = torch.from_numpy(pack_2bit_words_host(x).view(np.int32))
+    pos_t = torch.from_numpy(pos.astype(np.int64))
+    got = window_keys_at(x2w, pos_t, w)
+    assert got.dtype == torch.int64 and got.shape == (pos.shape[0],)
+    np.testing.assert_array_equal(got.numpy(), want[pos])
+    np.testing.assert_array_equal(window_keys_at_plain(x2w, pos_t, w).numpy(),
+                                  want[pos])
+
+
+def test_window_keys_at_reads_zero_past_the_words(rng):
+    """A window that runs past the words (or a position before them)
+    reads code 0 there, as the kernel's loader does."""
+    x = rng.integers(0, 4, size=64).astype(np.uint8)
+    x2w = torch.from_numpy(pack_2bit_words_host(x).view(np.int32))
+    w = 8
+    got = window_keys_at(x2w, torch.tensor([60, 64, -3], dtype=torch.int64), w)
+    code = lambda p: int(x[p]) if 0 <= p < 64 else 0  # noqa: E731
+    want = [sum(code(p + t) << (2 * (w - 1 - t)) for t in range(w))
+            for p in (60, 64, -3)]
+    assert got.tolist() == want
+
+
+def test_window_keys_at_checks_its_arguments():
+    x2w = torch.zeros(4, dtype=torch.int32)
+    pos = torch.zeros(3, dtype=torch.int64)
+    with pytest.raises(ValueError, match="int64"):
+        window_keys_at(x2w, pos.to(torch.int32), 8)
+    with pytest.raises(ValueError, match="int32"):
+        window_keys_at(x2w.to(torch.int64), pos, 8)
+    with pytest.raises(ValueError, match="window width"):
+        window_keys_at(x2w, pos, 33)
+    with pytest.raises(ValueError, match="no words"):
+        window_keys_at(x2w[:0], pos, 8)
+    assert window_keys_at(x2w, pos[:0], 8).shape == (0,)
 
 
 def _words(rng, R, stop, prefix):

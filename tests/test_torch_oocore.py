@@ -5,6 +5,7 @@ the multi-device tier), checkpoint/resume, the route from api.build,
 and stage by stage (chunk keys, splitters, the binner, the bucket
 classification). All data is integer: every comparison is exact."""
 
+import json
 import os
 
 import jax.numpy as jnp
@@ -101,13 +102,15 @@ def _same_result(got, want):
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
-def test_ooc_matches_jax_ooc(name, tmp_path):
+def test_ooc_matches_jax_ooc(name, tmp_path, monkeypatch):
     """Same reads, same knobs: the bytes, the sidecars and the plan's
-    counts equal the JAX tier's, and golden's."""
+    counts equal the JAX tier's, and golden's. Pass B takes each device
+    classification's keys from one gathered call (_row_keys)."""
     make, m, fields = CONFIGS[name]
     coll = SequenceCollection.from_reads(make())
     spill = fields | (dict(spill_dir=str(tmp_path / "sp")) if name == "spill" else {})
     stats, jstats = {}, {}
+    row_keys = _counting(monkeypatch, "_row_keys")
     got = build_bwt_ooc(coll, PipelineConfig(m=m), OocConfig(**spill),
                         stats=stats, device="cpu")
     jspill = fields | (dict(spill_dir=str(tmp_path / "jsp")) if name == "spill" else {})
@@ -119,17 +122,42 @@ def test_ooc_matches_jax_ooc(name, tmp_path):
     assert stats["n_chunks"] > 1 and stats["bucket_cap"] < coll.bwt_len
     assert stats["n_buckets"] == fields["n_buckets"]
     assert set(stats["stage_s"]) == {
-        "special module (host)", "pass A (keys + binning)",
+        "special module (host)", "text pack (host)", "pass A (keys + binning)",
         "pass B (bucket sorts)", "SP rank", "blue fill"}
     # wrappers count launches on a card only
-    assert stats["launches"] == {"window_keys": 0, "seg_scan_or": 0}
+    assert stats["launches"] == {"window_keys": 0, "window_keys_at": 0,
+                                 "seg_scan_or": 0}
     cap = fields.get("bucket_cap")
     if cap is not None:
         assert stats["max_bucket_rows"] > cap and stats["oversized_buckets"] >= 1
+        # and the oversized buckets' own keys, cap rows a call
+        assert row_keys["n"] > stats["classifications"]
     else:
         assert stats["oversized_buckets"] == 0
         assert stats["classifications"] == (
             fields["n_buckets"] - _empty_buckets(coll, m, fields))
+        assert row_keys["n"] == stats["classifications"]
+
+
+@pytest.mark.parametrize("checkpoint", [False, True])
+@pytest.mark.parametrize("name", ["oversized_cap512", "oversized_cap32",
+                                  "giant_run_cap24"])
+def test_ooc_oversized_spilled_matches_jax(name, checkpoint, tmp_path):
+    """The oversized fallback (host key sort of device keys, slabs,
+    single-key giant runs) on rows read back from 6-byte spill files:
+    the JAX tier's bytes, spilled likewise, and golden's."""
+    make, m, fields = CONFIGS[name]
+    coll = SequenceCollection.from_reads(make())
+    stats = {}
+    got = build_bwt_ooc(coll, PipelineConfig(m=m), OocConfig(
+        **fields, spill_dir=str(tmp_path / "sp"), checkpoint=checkpoint),
+        stats=stats, device="cpu")
+    want = joocore.build_bwt_ooc(_jax_coll(coll), JaxConfig(m=m), joocore.OocConfig(
+        **fields, spill_dir=str(tmp_path / "jsp"), checkpoint=checkpoint))
+    _same_result(got, want)
+    _same_result(got, golden_bwt(coll))
+    assert stats["oversized_buckets"] >= 1
+    assert os.listdir(tmp_path / "sp") == []
 
 
 def _empty_buckets(coll, m, fields):
@@ -286,7 +314,7 @@ def test_checkpoint_resume_leaves_no_bucket_files(tmp_path, monkeypatch):
     monkeypatch.undo()
     with open(d / "manifest.json") as f:
         assert '"next_bucket": 4' in f.read()
-    assert sorted(p.name for p in d.glob("bk3.*")) == ["bk3.k16", "bk3.key", "bk3.pos"]
+    assert sorted(p.name for p in d.glob("bk3.*")) == ["bk3.k16", "bk3.off"]
     stats = {}
     res = build_bwt_ooc(coll, PipelineConfig(m=16), ooc, stats=stats, device="cpu")
     assert "pass A (resume attach)" in stats["stage_s"]
@@ -339,6 +367,67 @@ def test_jax_manifest_is_not_resumed(tmp_path, monkeypatch):
     _same_result(res, golden_bwt(coll))
 
 
+def test_layout_1_manifest_is_not_resumed(tmp_path, monkeypatch):
+    """A spill directory of the port's layout 1 (18-byte rows, no runs)
+    interrupted mid pass B is not resumed: its fingerprint carries the
+    old layout, so the build starts afresh and gives golden's bytes."""
+    coll = SequenceCollection.from_reads(random_reads(_rng(), 10, lo=50, hi=180))
+    ooc = OocConfig(chunk=256, n_buckets=8, spill_dir=str(tmp_path / "ck"),
+                    checkpoint=True)
+    monkeypatch.setattr(oocore, "_SPILL_LAYOUT", (1 << 32) | 1)
+    _counting(monkeypatch, "_classify_bucket", crash_at=4)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        build_bwt_ooc(coll, PipelineConfig(m=16), ooc, device="cpu")
+    monkeypatch.undo()
+    st = json.loads((tmp_path / "ck" / "manifest.json").read_text())
+    assert st["stage"] == "B" and st["next_bucket"] == 3
+    assert st["fingerprint"] != oocore._fingerprint(coll, 16, 8, 256)
+    keys = _counting(monkeypatch, "_chunk_keys")
+    res = build_bwt_ooc(coll, PipelineConfig(m=16), ooc, device="cpu")
+    assert keys["n"] > 0
+    _same_result(res, golden_bwt(coll))
+
+
+def test_manifest_runs_rebuild_positions(tmp_path, monkeypatch):
+    """After pass A the manifest holds runs[b, c], the rows of bucket b
+    from chunk c, and no key: they equal the per-chunk counts of the
+    plain binner, match the 4-byte offset files, and the resume mid pass
+    B rebuilds the JAX tier's bytes from them."""
+    coll = SequenceCollection.from_reads(random_reads(_rng(), 10, lo=50, hi=180))
+    m, nb, C = 16, 8, 256
+    d = tmp_path / "ck"
+    ooc = OocConfig(chunk=C, n_buckets=nb, spill_dir=str(d), checkpoint=True)
+    _counting(monkeypatch, "_classify_bucket", crash_at=1)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        build_bwt_ooc(coll, PipelineConfig(m=m), ooc, device="cpu")
+    monkeypatch.undo()
+    st = json.loads((d / "manifest.json").read_text())
+    assert st["stage"] == "A" and "sizes" not in st
+    runs = np.asarray(st["runs"])
+    N, k = coll.bwt_len, m - 1
+    assert runs.shape == (nb, -(-N // C))
+    x2p = np.concatenate([coll.x2, np.full(32, 3, np.uint8)])
+    keys = ops.window_keys(torch.from_numpy(x2p[: N + k - 1]), k).numpy()
+    spl = np.asarray(st["splitters"], dtype=np.uint32)
+    for ci in range(runs.shape[1]):
+        sl = slice(ci * C, min(N, (ci + 1) * C))
+        *_, cnt = oocore._bin_rows_numpy(keys[sl], ci * C, coll.sep, x2p, N,
+                                         spl, min(16, k), k)
+        np.testing.assert_array_equal(runs[:, ci], cnt)
+    for b in range(nb):
+        assert (d / f"bk{b}.off").stat().st_size == 4 * runs[b].sum()
+        assert (d / f"bk{b}.k16").stat().st_size == 2 * runs[b].sum()
+    _counting(monkeypatch, "_classify_bucket", crash_at=3)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        build_bwt_ooc(coll, PipelineConfig(m=m), ooc, device="cpu")
+    monkeypatch.undo()
+    st = json.loads((d / "manifest.json").read_text())
+    assert st["stage"] == "B" and np.array_equal(st["runs"], runs)
+    res = build_bwt_ooc(coll, PipelineConfig(m=m), ooc, device="cpu")
+    _same_result(res, joocore.build_bwt_ooc(
+        _jax_coll(coll), JaxConfig(m=m), joocore.OocConfig(chunk=C, n_buckets=nb)))
+
+
 # ---- the route from api.build ----
 
 def test_api_routes_to_ooc_after_group_overflow(monkeypatch, capsys):
@@ -389,6 +478,35 @@ def test_chunk_keys_match_jax(m, C, seed):
     hi, lo = joocore._chunk_keys(jnp.asarray(words), k, C)
     np.testing.assert_array_equal(
         got.numpy(), ops.keys_from_pair(np.asarray(hi), np.asarray(lo)))
+
+
+@pytest.mark.parametrize("m", [12, 20, 32])
+def test_row_keys_match_jax_chunk_keys(m):
+    """Pass B's keys from the packed text at a bucket's positions (chunk
+    runs, ascending, across chunk bases that are not multiples of 16)
+    equal the keys JAX's pass A computes for those positions."""
+    k = m - 1
+    coll = SequenceCollection.from_reads(random_reads(np.random.default_rng(m),
+                                                      12, lo=60, hi=300))
+    N = coll.bwt_len
+    x2p = np.concatenate([coll.x2, np.full(32, 3, np.uint8)])
+    C = 200
+    n_chunks = -(-N // C)
+    words = oocore._pack_text(x2p, n_chunks * C + k, "cpu")
+    rng = np.random.default_rng(m + 1)
+    pos = np.sort(rng.choice(N, size=N // 5, replace=False)).astype(np.int64)
+    pos[-1] = N - 1                        # the last position: a T halo
+    got = oocore._row_keys(words, pos, k).numpy()
+    want = np.empty(N, np.int64)
+    for ci in range(n_chunks):
+        c0 = ci * C
+        buf = np.full(C + k, 3, np.uint8)
+        take = min(C + k, x2p.shape[0] - c0)
+        buf[:take] = x2p[c0 : c0 + take]
+        hi, lo = joocore._chunk_keys(jnp.asarray(ops.pack_2bit_words_host(buf)), k, C)
+        want[c0 : min(N, c0 + C)] = ops.keys_from_pair(
+            np.asarray(hi), np.asarray(lo))[: min(C, N - c0)]
+    np.testing.assert_array_equal(got, want[pos])
 
 
 @pytest.mark.parametrize("n,c", [(8, 16), (64, 11), (2, 16), (4, 5)])
@@ -526,34 +644,85 @@ def test_classify_bucket_matches_jax(m, nb):
     assert seen_multi > 0
 
 
+def _store_rows(rng, store, n_chunks, chunk, c_first=0):
+    """Rows appended to every bucket of `store` chunk by chunk (a bucket
+    may get none from a chunk), as pass A appends them; returns
+    {bucket: [(k16, pos) of each append]}."""
+    want = {b: [] for b in range(store.n)}
+    for ci in range(c_first, c_first + n_chunks):
+        for b in range(store.n):
+            n = int(rng.integers(0, 20))
+            pos = np.sort(rng.choice(chunk, n, replace=False)).astype(np.int64)
+            cols = (rng.integers(0, 1 << 12, n).astype(np.uint16),
+                    pos + np.int64(ci) * chunk)
+            store.append(b, ci, *cols)
+            want[b].append(cols)
+    store.close()
+    return want
+
+
 @pytest.mark.parametrize("spill", [False, True])
 def test_bucket_store_round_trip(tmp_path, spill):
     """Rows come back per bucket in the order appended, from DRAM lists
-    or from spill files (read into staging buffers, deleted as consumed,
-    or kept for delete() under checkpointing)."""
+    or from spill files of 6 bytes a row (read into staging buffers,
+    deleted as consumed, or kept for delete() under checkpointing); the
+    positions come back from the offsets and the runs."""
     rng = np.random.default_rng(9)
     d = str(tmp_path / "st") if spill else None
-    store = oocore._BucketStore(3, d)
-    want = {b: [] for b in range(3)}
-    for _ in range(4):
-        for b in range(3):
-            n = int(rng.integers(0, 20))
-            cols = (rng.integers(0, 1 << 62, n), rng.integers(0, 1 << 12, n),
-                    rng.integers(0, 1 << 40, n))
-            store.append(b, *cols)
-            want[b].append(cols)
-    store.close()
-    staging = ({c: np.empty(100, dt) for c, dt in oocore._BucketStore.COLS}
+    store = oocore._BucketStore(3, 4, 64, d)
+    want = _store_rows(rng, store, 4, 64)
+    staging = ({c: np.empty(100, dt) for c, dt in
+                oocore._BucketStore.COLS + (("pos", np.int64),)}
                if spill else None)
     for b in range(3):
         got = store.load(b, consume=b != 1, staging=staging)
-        for i, (c, dt) in enumerate(oocore._BucketStore.COLS):
-            assert got[i].dtype == dt
+        assert got[0].dtype == np.uint16 and got[1].dtype == np.int64
+        for i in range(2):
             np.testing.assert_array_equal(
-                got[i], np.concatenate([w[i] for w in want[b]]).astype(dt))
-    assert list(store.sizes) == [sum(len(w[0]) for w in want[b]) for b in range(3)]
+                got[i], np.concatenate([w[i] for w in want[b]]))
+        assert list(store.runs[b]) == [w[1].shape[0] for w in want[b]]
+    assert list(store.sizes) == [sum(len(w[1]) for w in want[b]) for b in range(3)]
     if spill:
         left = sorted(p.name for p in (tmp_path / "st").iterdir())
-        assert left == ["bk1.k16", "bk1.key", "bk1.pos"]
+        assert left == ["bk1.k16", "bk1.off"]
+        assert (tmp_path / "st" / "bk1.off").stat().st_size == 4 * store.sizes[1]
         store.delete(1)
         assert list((tmp_path / "st").iterdir()) == []
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_bucket_store_positions_past_2_32(tmp_path, spill):
+    """Chunks of the default 2^26 positions whose bases lie past 2^32
+    (chunks 63 to 66: base 63 * 2^26 = 4,227,858,432 is under 2^32, the
+    next three over it): each position comes back exactly as int64 from
+    its uint32 offset, also after a resume that attaches to the files
+    and takes the runs from the manifest."""
+    rng = np.random.default_rng(3)
+    C = 1 << 26
+    d = str(tmp_path / "st") if spill else None
+    store = oocore._BucketStore(2, 67, C, d)
+    want = _store_rows(rng, store, 4, C, c_first=63)
+    if spill:
+        runs = np.asarray(json.loads(json.dumps(store.runs.tolist())))
+        store = oocore._BucketStore(2, 67, C, d, reopen=True)
+        store.runs = runs
+    seen = []
+    for b in range(2):
+        k16, pos = store.load(b)
+        np.testing.assert_array_equal(pos, np.concatenate([w[1] for w in want[b]]))
+        np.testing.assert_array_equal(k16, np.concatenate([w[0] for w in want[b]]))
+        seen.append(pos)
+    seen = np.concatenate(seen)
+    assert seen.min() < 1 << 32 <= seen.max()
+    assert not store.runs[:, :63].any()
+
+
+def test_bucket_store_refuses_rows_out_of_order():
+    """A run of rows per chunk, chunks in order, positions inside the
+    chunk: anything else could not be rebuilt from the runs."""
+    store = oocore._BucketStore(1, 3, 64, None)
+    store.append(0, 1, np.zeros(2, np.uint16), np.array([64, 70]))
+    with pytest.raises(AssertionError):
+        store.append(0, 0, np.zeros(1, np.uint16), np.array([5]))
+    with pytest.raises(AssertionError):
+        store.append(0, 2, np.zeros(1, np.uint16), np.array([200]))

@@ -72,7 +72,8 @@ def test_sigkill_in_pass_b_then_resume_in_a_fresh_process(tmp_path, want, kill_a
     assert first.proc.wait(timeout=TIMEOUT) == -signal.SIGKILL, first.tail()
     l1 = first.lines()
     assert "RESULT" not in l1
-    assert l1["PASS_B"]["calls"] == {"_chunk_keys": 4, "_classify_bucket": 1}
+    assert l1["PASS_B"]["calls"] == {"_chunk_keys": 4, "_row_keys": 1,
+                                     "_classify_bucket": 1}
     st = _manifest(spill)
     done = kill_at - 1     # no bucket is empty at this size
     assert st["stage"] == ("A" if done == 0 else "B")
@@ -82,7 +83,7 @@ def test_sigkill_in_pass_b_then_resume_in_a_fresh_process(tmp_path, want, kill_a
     out = res["RESULT"]
     assert res["START"]["x2_sha"] == l1["START"]["x2_sha"]
     assert res["START"]["n"] == coll.bwt_len
-    assert out["calls"] == {"_chunk_keys": 0,
+    assert out["calls"] == {"_chunk_keys": 0, "_row_keys": BUCKETS - done,
                             "_classify_bucket": BUCKETS - done}
     assert out["stats"]["classifications"] == BUCKETS - done
     assert "pass A (resume attach)" in out["stats"]["stage_s"]
@@ -106,7 +107,8 @@ def test_watch_kills_in_pass_b_then_waits_for_the_resume(tmp_path, want):
     assert w1["returncode"] == -signal.SIGKILL and "RESULT" not in first.lines()
     st = _manifest(spill)
     assert st["stage"] == "B" and at <= w1["killed_at"] <= st["next_bucket"] < BUCKETS
-    assert w1["spill_peak"] > 0 and w1["spill_peak_apparent"] >= 18 * 3000
+    # 6 bytes a bucket row: 4 of offset, 2 of metadata
+    assert w1["spill_peak"] > 0 and w1["spill_peak_apparent"] >= 6 * 3000
     assert w1["rss_peak"] > 0
     second = Child(tmp_path / "c2.log", MBP, spill, "cpu", *KNOBS)
     w2 = watch(second.proc, spill, interval=0.02, timeout=TIMEOUT)
@@ -126,3 +128,35 @@ def test_watch_kills_a_child_past_its_timeout(tmp_path):
     with pytest.raises(TimeoutError, match="outlived"):
         watch(child.proc, spill, interval=0.05, timeout=1.0)
     assert child.proc.poll() == -signal.SIGKILL
+
+
+def test_whole_build_prints_its_fields(tmp_path, want):
+    """Without --kill-at the child builds the whole text from its seed
+    (no saved text) and reports bwt_len, the spill peak, the bytes it
+    wrote and, with --verify-steps, an LF walk over the whole text:
+    golden's hashes, every kernel's launch count (0 on the CPU) and one
+    gathered key call a classification."""
+    coll, gold = want
+    spill = tmp_path / "spill"
+    child = Child(tmp_path / "c.log", MBP, spill, "cpu", *KNOBS,
+                  "--verify-steps", str(coll.bwt_len + 5))
+    res = _result(child)
+    out = res["RESULT"]
+    assert res["START"]["x2_sha"] is None and res["START"]["n"] == coll.bwt_len
+    assert out["bwt_len"] == coll.bwt_len and _got(out) == gold
+    assert out["n_sharp"] == coll.n_reads - 1
+    assert out["lf_verify"]["ok"] is True
+    assert out["lf_verify"]["steps"] == coll.bwt_len
+    assert out["lf_verify"]["seconds"] >= 0
+    assert out["launches"] == {"window_keys": 0, "window_keys_at": 0,
+                               "seg_scan_or": 0}
+    assert out["calls"] == {"_chunk_keys": 4, "_row_keys": BUCKETS,
+                            "_classify_bucket": BUCKETS}
+    assert out["stats"]["classifications"] == BUCKETS
+    assert out["stats"]["oversized_buckets"] == 0
+    # at least the rows' 6 bytes a position reached the disk
+    assert out["spill_peak_bytes"] >= 6 * 3000
+    assert res["PASS_B"]["spill_bytes"] >= 6 * 3000
+    if out["io_bytes"]:
+        assert out["io_bytes"]["wchar"] >= out["io_bytes_build"]["wchar"] >= 6 * 3000
+    assert os.listdir(spill) == []

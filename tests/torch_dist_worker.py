@@ -5,16 +5,17 @@ chip_smoke.py runs it on the card (NCCL, or gloo with host staging).
 A worker joins a process group through INIT_URL (the tests use a
 file:// rendezvous, so concurrent test workers never race for a port),
 runs every case of a JSON job on DEVICE, and writes each case's results
-as <out>/<case>.r<rank>.npz, with the seconds the case took and the
-launches of both kernels in it (the counts are zeroed before each case).
+as <out>/<case>.r<rank>.npz, with the seconds the case took, the
+kernels' launches in it (the counts are zeroed before each case) and
+the bytes the process has passed to write calls so far (io_wchar).
 A case marked expect_error records the error it raises; any other error
 ends the rank, so that its peers fail fast instead of waiting in a
 collective.
 
     python tests/torch_dist_worker.py RANK N INIT_URL JOB.json OUT_DIR [DEVICE [BACKEND]]
 
-DEVICE defaults to cpu and BACKEND to gloo. It imports torch and the
-port only, never jax.
+DEVICE defaults to cpu and BACKEND to gloo. It imports torch, the
+port and tests/torch_ooc_worker.py only, never jax.
 """
 
 from __future__ import annotations
@@ -337,12 +338,14 @@ def main(argv) -> int:
 
     from debwt_tpu_torch.kernels import seg_or, window_keys
     from debwt_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from torch_ooc_worker import io_bytes
 
     if device == "cpu":
         torch.set_num_threads(1)
     init_distributed(init, n, rank, backend=backend)
     mesh = make_mesh(n, device=device)
     counters = {"window_keys": window_keys.window_keys,
+                "window_keys_at": window_keys.window_keys_at,
                 "seg_scan_or": seg_or.seg_scan_or}
     with open(job) as f:
         cases = json.load(f)
@@ -361,6 +364,7 @@ def main(argv) -> int:
         res["seconds"] = np.float64(time.perf_counter() - t0)
         for name, fn in counters.items():
             res["launches_" + name] = np.int64(fn.launches)
+        res["io_wchar"] = np.int64(io_bytes().get("wchar", 0))
         np.savez(os.path.join(out, f"{case['name']}.r{rank}.npz"), **res)
     torch.distributed.destroy_process_group()
     return 0
