@@ -65,28 +65,33 @@ Phases, in order; any failure ends the script with a non-zero code:
            plain versions and timed at this tier's shapes (window_keys on
            one chunk's packed words at w = 31 and 11, the classification
            scans at the largest bucket's rows)
-  genome   the grouped tier at genome scale: tools/bench_ooc.py's
-           synth_concat collection at 3000 Mbp (N = 3,000,000,004, so
-           positions pass 2^31; synthesis timed) through api.build with
-           the default cap and check=True; it must announce and take the
-           grouped tier, have .bench_cache.json grouped_mbp3000.0's
-           sp_len and n_blue (the JAX package's grouped and out-of-core
-           tiers agreed on them), one '$' at dollar_pos and n_reads - 1
-           '#', launches against the plan, a classification of at least
-           2^29 - 2^20 rows (the default cap at the scan bound), and
-           pass the 2^22-step LF walk on the sampled-occ path; the files
-           written by io.write_bwt to a temporary directory and read back
-           (the `.#` and `.$` positions, the object's sha256); the plan,
-           seconds, Mbp/s, stage times, peak device bytes a group row,
-           the host's peak RSS and the port's own hashes, which must
-           equal those recorded for this build; then seg_scan_or at this
+  genome   the CLI at genome scale: tools/bench_ooc.py's synth_concat
+           text at 3000 Mbp (N = 3,000,000,004, so positions pass 2^31;
+           synthesis timed) written as FASTA (four records, 80 bases a
+           line) to a tmpfs with room for 1.3 x (FASTA + N/4 + 64 MiB),
+           else gzip-compressed at level 1 to disk; then one `python -m
+           debwt_tpu_torch.cli` process on it with --check --timings
+           --verify --verify-steps 2^22 and DEBWT_TRACE=1 alone (the
+           default route); it must announce and take the grouped tier
+           at G 7 x 23 chunks with a classification of at least 2^29 -
+           2^20 rows (the default cap at the scan bound), launch the
+           kernels as its plan says, trace .bench_cache.json
+           grouped_mbp3000.0's sp_len and n_blue (the JAX package's
+           grouped and out-of-core tiers agreed on them), pass the
+           character counts and the 2^22-step LF walk, and write files
+           of N/4 bytes with the port's own hashes as first recorded
+           (GENOME_HASHES), one '$' and n_reads - 1 '#'; the FASTA's
+           bytes and medium, the process's wall, start, import, CUDA
+           context, ingest, build, write, walk and exit seconds, its
+           stage times, Mbp/s, its peak resident set (VmHWM) and the
+           card's peak bytes a group row; then seg_scan_or at this
            build's classification rows, both directions, against its
-           plain version and timed
+           plain version and timed, in this process
   ooc_rehearsal
            the out-of-core tier spilled with checkpoints, killed and
            resumed across processes (tools/rehearse_ooc.py's job):
-           synth_concat at 1000 Mbp built on the
-           grouped tier through api.build for the same-run hashes, its
+           synth_concat at 600 Mbp built on the grouped tier through
+           api.build for the same-run hashes and counts, its
            text written once to a disk-backed temporary directory
            (tmpfs, or under 1.25 x 8 bytes a position free, fails),
            this process's memory freed, then tests/torch_ooc_worker.py
@@ -96,8 +101,10 @@ Phases, in order; any failure ends the script with a non-zero code:
            fresh child that resumes it; it must skip pass A (no
            kernel-1 launch), launch kernel 2 three times a
            classification, classify no more than the buckets left, have
-           ooc_mbp1000.0's sp_len and grouped_mbp1000.0's n_blue, the
-           grouped build's hashes, leave the spill directory empty and
+           the grouped build's sp_len, n_blue and hashes (.bench_cache.json
+           has the JAX package's counts at 1000 Mbp, where the phase ran
+           until the genome phase's CLI process took its time), leave
+           the spill directory empty and
            spill at most 7.5 bytes a position at the peak (bucket rows
            are 6 bytes: a position's offset in its chunk and its
            metadata; pass B re-derives the key);
@@ -152,7 +159,8 @@ Phases, in order; any failure ends the script with a non-zero code:
            (ref_mbp140.0, ref_mbp140.0_m24 for -k 24, ref_mbp4.6)
 
 After the phases, one line gives the GiB each phase wrote to disk,
-its children's included, and their total. The lines before the last
+its children's included, and their total; bytes that went to a tmpfs
+are counted apart. The lines before the last
 are the `kernels` JSON object and the card's name and power limit; the
 last is {"ok": true, "device": {...}}.
 Every run runs every phase. The script takes no arguments and imports
@@ -200,8 +208,10 @@ GENOME_HASHES = (
     "9de95ddf21d8dce6b441465b6035964d0e722f1f149b6bcaf52a00c4f2090d97",
     "eb56453b5bee26e43351f6794c7487aed1cd92e007bbc3d52680624f4b2e6eef",
     2_733_368_556)
-# the kill-and-resume rehearsal: tools/rehearse_ooc.py's size and knobs
-OOC_REHEARSAL_MBP = 1000.0
+# the kill-and-resume rehearsal: tools/rehearse_ooc.py's knobs, at 600 Mbp
+# of its 1000 so that the script keeps to its time with the genome phase's
+# CLI process
+OOC_REHEARSAL_MBP = 600.0
 OOC_REHEARSAL_BUCKETS = 256
 OOC_REHEARSAL_KILL_AT = 128  # SIGKILL once the manifest reaches this bucket
 OOC_SPILL_BYTES = 8         # disk bytes a position: 6 of bucket rows, the
@@ -225,6 +235,8 @@ RANK_TIMEOUT = 600          # seconds a rank process may take
 CLI_MBP = 140.0             # the cli phase's FASTA: every tier's CLI run
 CLI_SMALL_MBP = 4.6         # -k 12
 CLI_TIMEOUT = 300           # seconds a CLI process may take
+CLI_GENOME_TIMEOUT = 600    # seconds the genome phase's CLI process may take
+GENOME_PLAN = (7, 23)       # its groups and selection chunks at R near 2^29
 
 
 def say(*a):
@@ -234,13 +246,21 @@ def say(*a):
 # bytes a phase wrote that this process's own /proc entry does not hold:
 # its children's (their /proc/<pid>/io wchar, as they report it or as
 # it was last sampled) and an out-of-core build's spilled output, a
-# mapped file whose N bytes are all written (main reads the deltas)
-_WRITTEN = {"children_wchar": 0, "mapped": 0}
+# mapped file whose N bytes are all written; and, of the bytes counted
+# so, those that went to a tmpfs, not to the disk (main reads the deltas)
+_WRITTEN = {"children_wchar": 0, "mapped": 0, "tmpfs": 0}
 
 
-def note_written(children_wchar: int = 0, mapped: int = 0):
+def note_written(children_wchar: int = 0, mapped: int = 0, tmpfs: int = 0):
     _WRITTEN["children_wchar"] += children_wchar
     _WRITTEN["mapped"] += mapped
+    _WRITTEN["tmpfs"] += tmpfs
+
+
+def disk_bytes(w: dict) -> int:
+    """The disk bytes of one phase's tally: every write counted, less
+    those that went to a tmpfs."""
+    return w["own_wchar"] + w["children_wchar"] + w["mapped"] - w["tmpfs"]
 
 
 def own_wchar() -> int:
@@ -842,6 +862,12 @@ def _plan_of(stats: dict) -> dict:
     return {k: stats[k] for k in keys}
 
 
+def _text_bytes(chunk: int, n_chunks: int) -> int:
+    """Device bytes of the grouped tier's resident packed text."""
+    E = chunk + 32 + 15
+    return (16 + (n_chunks - 1) * chunk + E + (-E) % 16) // 4
+
+
 def _check_grouped_counts(stats: dict, counts: dict, what: str):
     """Launches against the plan: kernel 1 once a chunk of every group
     scanned, kernel 2 once a chunk too and three times a group
@@ -1013,8 +1039,7 @@ def phase_grouped(dev, rows: dict):
     R = stats["cap_run"] + stats["ns_cap"]
     peak, reserved = (torch.cuda.max_memory_allocated(),
                       torch.cuda.max_memory_reserved())
-    E = stats["chunk"] + 32 + 15
-    text_bytes = (16 + (stats["n_chunks"] - 1) * stats["chunk"] + E + (-E) % 16) // 4
+    text_bytes = _text_bytes(stats["chunk"], stats["n_chunks"])
     say(json.dumps({
         "grouped_full_mbp": FULL_MBP, "n": coll.bwt_len, "m": 32,
         "rows_needed": n_rows, "single_rows_bound": bound, "free_bytes": free,
@@ -1278,141 +1303,115 @@ def _ooc_kernel_shapes(dev, rows: dict, R_bucket: int):
 
 
 def phase_genome(dev, rows: dict):
-    """The grouped tier at genome scale: tools/bench_ooc.py's
-    synth_concat collection at 3000 Mbp (N = 3,000,000,004, so positions
-    run past 2^31) through api.build with the default cap, held to the
-    SP length and blue count of .bench_cache.json's grouped_mbp3000.0
-    row (the JAX package's grouped and out-of-core tiers agreed on them),
-    one '$' and n_reads - 1 '#', a bounded LF walk, and files written and
-    read back; then seg_scan_or at this build's classification rows,
-    which must reach the scan bound."""
-    import contextlib
-    import io
-    import os
-    import resource
+    """The CLI at genome scale: tools/bench_ooc.py's synth_concat text at
+    3000 Mbp (N = 3,000,000,004, so positions run past 2^31) written as
+    FASTA to a tmpfs with room (else gzip-compressed to disk), then one
+    `python -m debwt_tpu_torch.cli` process on it (--check --timings
+    --verify --verify-steps 2^22, DEBWT_TRACE=1 and no routing variable:
+    the route a user gets). It must take the grouped tier at
+    GENOME_PLAN with a classification at the scan bound, launch the
+    kernels as its plan says, trace .bench_cache.json grouped_mbp3000.0's
+    SP length and blue count (the JAX package's grouped and out-of-core
+    tiers agreed on them), pass the check and the LF walk, and write
+    files with the port's recorded hashes, one '$' and n_reads - 1 '#';
+    then seg_scan_or at its classification rows, in this process."""
     import tempfile
 
-    import numpy as np
     import torch
 
-    from debwt_tpu_torch import api, grouped, oocore, special
-    from debwt_tpu_torch.io import read_sidecars, write_bwt
-    from debwt_tpu_torch.synth import synth_concat_collection
-    from debwt_tpu_torch.types import PipelineConfig
-    from debwt_tpu_torch.verify import _FAST_N, lf_verify
+    from debwt_tpu_torch import grouped, oocore
+    from debwt_tpu_torch.synth import synth_concat_codes
 
     want = json.loads((ROOT / ".bench_cache.json").read_text())[
         f"grouped_mbp{GENOME_MBP}"]
-    what = f"genome {GENOME_MBP} Mbp"
-    t0 = time.perf_counter()
-    coll = synth_concat_collection(GENOME_MBP)
-    t_synth = time.perf_counter() - t0
-    N = coll.bwt_len
-    if N <= 1 << 31:
-        raise AssertionError(f"{what}: N = {N} does not pass 2^31")
-    config = PipelineConfig(m=32, check=True)
-    n_rows, bound = api.rows_needed(coll, config.m), api.single_rows_bound(dev)
-    free, _total = torch.cuda.mem_get_info(dev)
-    stats = {}
-    route = io.StringIO()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    with RssPeak() as rss, contextlib.redirect_stderr(route):
-        t0 = time.perf_counter()
-        # check: character counts; stats: the plan the grouped tier ran
-        r = api.build(coll, config, device=dev, verbose=True, stats=stats)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    counts = _read_counts()
-    route = route.getvalue().strip()
-    say(f"[genome] {route}")
-    if "grouped" not in route or "groups.select" not in r.timings:
-        raise AssertionError(f"{what} did not take the grouped tier: {route}")
-    _check_grouped_counts(stats, counts, what)
-    for name, n in counts.items():
-        rows[name]["launches_genome"] = n
-    if (stats["sp_len"], stats["n_blue"]) != (want["sp_len"], want["n_blue"]):
-        raise AssertionError(
-            f"{what}: sp_len {stats['sp_len']} and n_blue {stats['n_blue']}, "
-            f"the JAX package's {want['sp_len']} and {want['n_blue']}")
-    bwt6 = r.bwt6
-    cnt = oocore.char_counts(bwt6)
-    if not (bwt6.shape[0] == N and cnt[5] == 1 and bwt6[r.dollar_pos] == 5
-            and cnt[4] == coll.n_reads - 1 == r.sharp_pos.shape[0]
-            and (bwt6[r.sharp_pos] == 4).all()):
-        raise AssertionError(f"{what}: the '$' or '#' counts are wrong")
-    R = stats["cap_run"] + stats["ns_cap"]
+    what = f"cli genome {GENOME_MBP} Mbp"
+    n_est = int(GENOME_MBP * 1e6) + 4
+    need = int(1.3 * (n_est * 81 // 80 + n_est // 4 + (64 << 20)))
+    mounts = _tmpfs_mounts()
+    say(json.dumps({"genome_tmpfs_mounts": mounts, "need_bytes": need}))
+    room = [m["mount"] for m in mounts if m["free_bytes"] >= need]
+    medium = "tmpfs" if room else "gz on disk"
+    with tempfile.TemporaryDirectory(prefix="debwt_cli_genome_",
+                                     dir=room[0] if room else None) as d:
+        fa = Path(d) / ("genome.fa" if room else "genome.fa.gz")
+        made = _write_fasta(fa, GENOME_MBP, synth_concat_codes)
+        N, fa_bytes = made["n"], fa.stat().st_size
+        if N <= 1 << 31:
+            raise AssertionError(f"{what}: N = {N} does not pass 2^31")
+        oocore._malloc_trim()           # the codes and the text are freed
+        torch.cuda.empty_cache()
+        free, _total = torch.cuda.mem_get_info(dev)
+        run = _run_cli(fa, ["--check", "--timings", "--verify", "--verify-steps",
+                            str(VERIFY_STEPS)], {}, dev,
+                       dict(zip(("obj_sha", "sharp_sha", "dollar"), GENOME_HASHES)),
+                       timeout=CLI_GENOME_TIMEOUT)
+        if room:
+            note_written(tmpfs=fa_bytes + sum(run["file_bytes"].values()))
+    for ln in run["route"] + run["plan"]:
+        say(f"[genome] {ln}")
+    _check_cli_run("grouped_genome", run)
+    G, cap_run, C, n_chunks, ns_cap = _grouped_plan(run)
+    R = cap_run + ns_cap
+    if "groups.select" not in run["stage_s"] or (G, n_chunks) != GENOME_PLAN:
+        raise AssertionError(f"{what}: plan G {G} x {n_chunks} chunks, stages "
+                             f"{list(run['stage_s'])}; want {GENOME_PLAN}")
     if R < GENOME_MIN_R:
         raise AssertionError(
             f"{what}: classification rows {R} under {GENOME_MIN_R}: the "
             "default cap no longer reaches the scan bound")
-    peak, reserved = (torch.cuda.max_memory_allocated(),
-                      torch.cuda.max_memory_reserved())
-    E = stats["chunk"] + 32 + 15
-    text_bytes = (16 + (stats["n_chunks"] - 1) * stats["chunk"] + E + (-E) % 16) // 4
+    if (run["sp_len"], run["n_blue"]) != (want["sp_len"], want["n_blue"]):
+        raise AssertionError(
+            f"{what}: sp_len {run['sp_len']} and n_blue {run['n_blue']}, "
+            f"the JAX package's {want['sp_len']} and {want['n_blue']}")
+    if run["verify"] != ["[debwt-torch] LF invertibility: OK"]:
+        raise AssertionError(f"{what}: {run['verify']}")
+    sharp, dollar = run["sharp_pos"], run["hashes"]["dollar"]
+    if not (len(sharp) == made["n_reads"] - 1 and dollar == GENOME_HASHES[2]
+            and run["file_bytes"][""] == 8 * ((N + 31) // 32)):
+        raise AssertionError(f"{what}: sidecars {sharp}, {dollar}, files "
+                             f"{run['file_bytes']}")
+    for name, n in run["launches"].items():
+        rows[name]["launches_genome"] = n
+    proc = run["process"]
+    reserved = proc["max_memory_reserved"]
+    text_bytes = _text_bytes(C, n_chunks)
     say(json.dumps({
-        "genome_mbp": GENOME_MBP, "n": N, "m": 32, "input": "synth_concat",
-        "rows_needed": n_rows, "single_rows_bound": bound, "free_bytes": free,
+        "cli_genome": True, "genome_mbp": GENOME_MBP, "n": N, "m": 32,
+        "input": "synth_concat", "fasta_medium": medium, "fasta_bytes": fa_bytes,
+        "fasta_mount": room[0] if room else None, "synth_s": made["synth_s"],
+        "fasta_write_s": made["write_s"], "free_bytes": free,
         "route": "grouped", "character_counts_equal": True,
         "sp_len_n_blue_equal_jax": [want["sp_len"], want["n_blue"]],
-        **_plan_of(stats), "rows_largest_group": R, "build_s": dt,
-        "mbps": (N - coll.n_reads) / 1e6 / dt, "stage_s": r.timings,
-        "unmarked_s": dt - sum(v for k_, v in r.timings.items()
-                               if not k_.startswith("groups.")),
-        "peak_bytes": peak, "peak_reserved_bytes": reserved,
+        "n_groups": G, "cap_run": cap_run, "chunk": C, "n_chunks": n_chunks,
+        "ns_cap": ns_cap, "sp_len": run["sp_len"], "n_blue": run["n_blue"],
+        "launches": run["launches"],
+        "rows_largest_group": R, "process_s": run["process_s"],
+        "ingest_s": run["ingest_s"], "build_s": run["build_s"],
+        "write_s": proc["write_s"], "verify_s": proc["verify_s"],
+        "verify_steps": VERIFY_STEPS,
+        "start_s": proc["start_s"], "torch_import_s": proc["torch_import_s"],
+        "imports_s": proc["imports_s"], "cuda_context_s": proc.get("cuda_context_s"),
+        "exit_s": proc["exit_s"],
+        "other_s": run["process_s"] - run["ingest_s"] - run["build_s"]
+        - proc["write_s"] - proc["verify_s"] - proc["start_s"] - proc["imports_s"]
+        - proc.get("cuda_context_s", 0) - proc["exit_s"],
+        "mbps": (N - made["n_reads"]) / 1e6 / run["build_s"],
+        "stage_s": run["stage_s"],
+        "unmarked_s": run["build_s"] - sum(
+            v for k_, v in run["stage_s"].items() if not k_.startswith("groups.")),
+        "vmhwm_bytes": proc["vmhwm_bytes"],
+        "rss_peak_sampled_bytes": proc["rss_peak_sampled_bytes"],
+        "host_peak_rss_bytes": proc["vmhwm_bytes"] or proc["rss_peak_sampled_bytes"],
+        "peak_bytes": proc["max_memory_allocated"],
+        "peak_reserved_bytes": reserved,
         "peak_reserved_bytes_per_group_row": reserved / R,
         "peak_reserved_less_text_per_group_row": (reserved - text_bytes) / R,
         "group_bytes_per_row_constant": grouped._GROUP_BYTES_PER_ROW,
-        "host_peak_rss_bytes": rss.bytes,
-        "ru_maxrss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
-        "synth_s": t_synth,
+        "file_bytes": run["file_bytes"], "sharp_pos": sharp, "dollar_pos": dollar,
+        "positions_past_2_31": sum(p >= 1 << 31 for p in sharp + [dollar]),
+        "port_hashes": run["hashes"], "port_hashes_equal_recorded": True,
+        "lf_verify_ok": True,
     }))
-    del bwt6
-    assert N >= _FAST_N
-    t0 = time.perf_counter()
-    if not lf_verify(r, coll, max_steps=VERIFY_STEPS):
-        raise AssertionError(f"{what}: the LF walk fails")
-    say(json.dumps({"lf_verify_mbp": GENOME_MBP, "n": N, "walker": "native",
-                    "path": "sampled occ table", "steps": VERIFY_STEPS,
-                    "ok": True, "seconds": time.perf_counter() - t0}))
-    # the reference-format files, written and read back; the port's own
-    # hashes of this build (no reference binary's exist at this size)
-    t0 = time.perf_counter()
-    packed = r.packed()
-    t_pack = time.perf_counter() - t0
-    obj_sha = hashlib.sha256(packed).hexdigest()
-    del packed
-    with tempfile.TemporaryDirectory(prefix="debwt_genome_") as d:
-        obj = os.path.join(d, "genome.bwt")
-        t0 = time.perf_counter()
-        write_bwt(r, obj)
-        t_write = time.perf_counter() - t0
-        with open(obj, "rb") as f:
-            file_sha = hashlib.sha256(f.read()).hexdigest()
-        sharp, dollar = read_sidecars(obj)
-        sizes = {ext: os.path.getsize(obj + ext) for ext in ("", ".#", ".$")}
-    if not (file_sha == obj_sha and np.array_equal(sharp, r.sharp_pos)
-            and dollar == r.dollar_pos and sizes[""] == 8 * ((N + 31) // 32)):
-        raise AssertionError(f"{what}: the files read back differ")
-    hashes = (obj_sha, hashlib.sha256(r.sharp_pos.astype("int64").tobytes())
-              .hexdigest(), int(r.dollar_pos))
-    if hashes != GENOME_HASHES:
-        raise AssertionError(f"{what}: hashes {hashes}, the port's earlier "
-                             f"{GENOME_HASHES}")
-    say(json.dumps({
-        "genome_files_read_back_equal": True, "file_bytes": sizes,
-        "sharp_pos": r.sharp_pos.tolist(), "dollar_pos": int(r.dollar_pos),
-        "positions_past_2_31": int((r.sharp_pos >= 1 << 31).sum()
-                                   + (r.dollar_pos >= 1 << 31)),
-        "port_hashes": dict(zip(("obj_sha", "sharp_sha", "dollar"), hashes)),
-        "port_hashes_equal_recorded": True,
-        "pack_s": t_pack, "write_s": t_write,
-    }))
-    del r, coll
-    special._BUF_CACHE.clear()          # 3 N bytes of padded-text buffers
-    oocore._malloc_trim()
-    torch.cuda.empty_cache()
     # ---- kernel 2 at this build's classification rows ----
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -1430,6 +1429,32 @@ def phase_genome(dev, rows: dict):
     torch.cuda.empty_cache()
 
 
+def _tmpfs_mounts() -> list:
+    """The tmpfs mounts of /proc/mounts that this process may write, each
+    once and none under /sys or /proc, with their free bytes, the most
+    free first."""
+    import os
+    import shutil
+
+    out = {}
+    for mnt, typ in _proc_mounts():
+        if (typ == "tmpfs" and not mnt.startswith(("/sys/", "/proc/"))
+                and os.access(mnt, os.W_OK | os.X_OK)):
+            try:
+                out[mnt] = shutil.disk_usage(mnt).free
+            except OSError:
+                pass
+    return [{"mount": m, "free_bytes": b}
+            for m, b in sorted(out.items(), key=lambda kv: -kv[1])]
+
+
+def _proc_mounts() -> list:
+    """(mount point, filesystem type) of each line of /proc/mounts."""
+    with open("/proc/mounts") as f:
+        return [(mnt.replace("\\040", " "), typ)
+                for _dev, mnt, typ in (line.split()[:3] for line in f)]
+
+
 def _spill_fs(path, N: int) -> dict:
     """The filesystem that holds `path` (the /proc/mounts entry of the
     longest mount point over it) and its free bytes. Raises on tmpfs,
@@ -1440,12 +1465,10 @@ def _spill_fs(path, N: int) -> dict:
 
     real = os.path.realpath(path)
     mount, fstype = "", "unknown"
-    with open("/proc/mounts") as f:
-        for line in f:
-            _dev, mnt, typ = line.split()[:3]
-            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
-            if inside and len(mnt) > len(mount):
-                mount, fstype = mnt, typ
+    for mnt, typ in _proc_mounts():
+        inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+        if inside and len(mnt) > len(mount):
+            mount, fstype = mnt, typ
     free = shutil.disk_usage(path).free
     need = int(1.25 * OOC_SPILL_BYTES * N)
     fs = {"path": real, "mount": mount, "fstype": fstype, "free_bytes": free,
@@ -1466,9 +1489,9 @@ def phase_ooc_rehearsal(dev, rows: dict):
     spill_dir, checkpoint=True), check=True) in a child that this
     process SIGKILLs once the manifest reaches bucket 128 of pass B, and
     in a fresh child that resumes it. The resumed child must skip pass
-    A, classify only what was left, have the JAX package's sp_len and
-    n_blue and the grouped build's hashes, and leave the spill
-    directory empty; then seg_scan_or at the largest bucket's rows."""
+    A, classify only what was left, have the grouped build's sp_len,
+    n_blue and hashes, and leave the spill directory empty; then
+    seg_scan_or at the largest bucket's rows."""
     import os
     import tempfile
 
@@ -1481,9 +1504,6 @@ def phase_ooc_rehearsal(dev, rows: dict):
     sys.path.insert(0, str(ROOT / "tests"))
     from torch_ooc_worker import Child, save_collection, watch
 
-    cache = json.loads((ROOT / ".bench_cache.json").read_text())
-    want = {"sp_len": cache[f"ooc_mbp{OOC_REHEARSAL_MBP}"]["sp_len"],
-            "n_blue": cache[f"grouped_mbp{OOC_REHEARSAL_MBP}"]["n_blue"]}
     what = f"ooc rehearsal {OOC_REHEARSAL_MBP} Mbp"
     nb = OOC_REHEARSAL_BUCKETS
     t0 = time.perf_counter()
@@ -1495,8 +1515,9 @@ def phase_ooc_rehearsal(dev, rows: dict):
     r = api.build(coll, PipelineConfig(m=32, check=True), device=dev,
                   stats=stats)
     t_grouped = time.perf_counter() - t0
-    if "groups.select" not in r.timings or {k: stats[k] for k in want} != want:
+    if "groups.select" not in r.timings:
         raise AssertionError(f"{what}: the grouped build's plan {_plan_of(stats)}")
+    want = {k: stats[k] for k in ("sp_len", "n_blue")}
     grouped = _hashes(r)
     gplan = {k: stats[k] for k in ("n_groups", "cap_run", "n_chunks")}
     del r
@@ -1559,7 +1580,7 @@ def phase_ooc_rehearsal(dev, rows: dict):
                              f"on a resume at bucket {resumed_at}")
     if {k: stats[k] for k in want} != want:
         raise AssertionError(f"{what}: sp_len {stats['sp_len']} and n_blue "
-                             f"{stats['n_blue']}, the JAX package's {want}")
+                             f"{stats['n_blue']}, the grouped build's {want}")
     if (res["obj_sha"], res["sharp_sha"], res["dollar"]) != grouped:
         raise AssertionError(f"{what}: differs from the grouped build")
     if left:
@@ -1576,7 +1597,8 @@ def phase_ooc_rehearsal(dev, rows: dict):
         "ooc_rehearsal_mbp": OOC_REHEARSAL_MBP, "n": N, "m": 32,
         "input": "synth_concat", "synth_s": t_synth, "grouped_build_s": t_grouped,
         "grouped_plan": gplan,
-        "hashes_equal_grouped": True, "sp_len_n_blue_equal_jax": list(want.values()),
+        "hashes_equal_grouped": True,
+        "sp_len_n_blue_equal_grouped": list(want.values()),
         "spill_fs": fs, "text_save_s": t_save, "parent": parent,
         "killed_at": killed_at, "resumed_at": resumed_at, **_ooc_plan(stats),
         "child1": {"seconds": w1["seconds"], "exit": w1["returncode"],
@@ -1848,21 +1870,44 @@ def _dist_kernel_shapes(dev, rows: dict, N: int):
     say(f"[kernels] window_keys at the dist shapes: {wk.cases} cases equal")
 
 
-def _write_fasta(path, mbp: float):
-    """The synthetic collection of `mbp` as FASTA, 80 bases a line."""
+def _write_fasta(path, mbp: float, make=None) -> dict:
+    """The synthetic collection make(mbp) (synth.synth_codes unless given:
+    (codes, lengths) of the genomes back to back) as FASTA, records
+    genome<i>, 80 bases a line, 2^20 lines a write; gzip at level 1 where
+    `path` ends in .gz. Returns the collection's N and n_reads and the
+    seconds of synthesis and of writing."""
+    import functools
+    import gzip
+
     import numpy as np
 
     from debwt_tpu_torch.synth import synth_codes
 
-    codes, lengths = synth_codes(mbp)
-    text = np.frombuffer(b"ACGT", dtype=np.uint8)[codes]
-    with open(path, "wb") as f:
+    t0 = time.perf_counter()
+    codes, lengths = (make or synth_codes)(mbp)
+    t_synth = time.perf_counter() - t0
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    opener = (functools.partial(gzip.open, compresslevel=1)
+              if str(path).endswith(".gz") else open)
+    block = 1 << 20
+    with opener(path, "wb") as f:
         start = 0
         for i, n in enumerate(lengths.tolist()):
-            seq = text[start : start + n].tobytes()
-            start += n
             f.write(f">genome{i}\n".encode())
-            f.write(b"\n".join(seq[j : j + 80] for j in range(0, n, 80)) + b"\n")
+            full = n // 80
+            for j in range(0, full, block):
+                rows = min(block, full - j)
+                lines = np.empty((rows, 81), dtype=np.uint8)
+                lines[:, 80] = ord("\n")
+                lines[:, :80] = acgt[codes[start + 80 * j:
+                                           start + 80 * (j + rows)]].reshape(rows, 80)
+                f.write(memoryview(lines.reshape(-1)))
+            if n % 80:
+                f.write(acgt[codes[start + 80 * full : start + n]].tobytes() + b"\n")
+            start += n
+    return {"n": int(lengths.sum()) + lengths.shape[0],
+            "n_reads": int(lengths.shape[0]), "synth_s": t_synth,
+            "write_s": time.perf_counter() - t0 - t_synth}
 
 
 def _dist_cli(dev, ref: dict):
@@ -1881,14 +1926,51 @@ def _dist_cli(dev, ref: dict):
 
 
 # the CLI's own entry, as `python -m debwt_tpu_torch.cli` runs it, with
-# the kernels' launch counts of the process printed after it returns
+# the kernels' launch counts of the process printed after it returns,
+# then its bytes written, its peak resident set (VmHWM, which an exec'd
+# process starts anew, where the kernel has it; and statm sampled every
+# 50 ms), the card's peak bytes, the seconds of the writer and the LF
+# walk (both wrapped here; the CLI prints neither) and the parts of its
+# fixed cost: the wall clock at entry and at main's return, the imports,
+# and on a card the CUDA context, made here before main
 _CLI_MAIN = """\
-import json, sys
+import time
+secs = {"entered_at": time.time()}
+import json, os, sys, threading
+import torch
+secs["torch_import_s"] = time.time() - secs["entered_at"]
+from debwt_tpu_torch import io as dio, verify
 from debwt_tpu_torch.cli import main
 from debwt_tpu_torch.kernels import seg_or, window_keys
+secs["imports_s"] = time.time() - secs["entered_at"]
+if sys.argv[sys.argv.index("--device") + 1] == "cuda":
+    t0 = time.time()
+    torch.cuda.mem_get_info()
+    secs["cuda_context_s"] = time.time() - t0
+rss, done = [0], threading.Event()
+def timed(name, fn):
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+    return run
+def sample():
+    page = os.sysconf("SC_PAGE_SIZE")
+    while True:
+        with open("/proc/self/statm") as f:
+            rss[0] = max(rss[0], int(f.read().split()[1]) * page)
+        if done.wait(0.05):
+            return
+dio.write_bwt = timed("write_s", dio.write_bwt)
+verify.lf_verify = timed("verify_s", verify.lf_verify)
+threading.Thread(target=sample, daemon=True).start()
 try:
     rc = main(sys.argv[1:])
 finally:
+    secs["returned_at"] = time.time()
+    done.set()
     print("[launches] " + json.dumps({
         "window_keys": window_keys.window_keys.launches,
         "window_keys_at": window_keys.window_keys_at.launches,
@@ -1899,52 +1981,85 @@ finally:
         print("[io] " + json.dumps({"wchar": int(io["wchar"])}), file=sys.stderr)
     except (OSError, ValueError, KeyError):
         pass
+    with open("/proc/self/status") as f:
+        hwm = [int(ln.split()[1]) * 1024 for ln in f if ln.startswith("VmHWM:")]
+    cuda = torch.cuda.is_initialized()
+    print("[process] " + json.dumps({
+        "vmhwm_bytes": hwm[0] if hwm else None, "rss_peak_sampled_bytes": rss[0],
+        "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else None,
+        "max_memory_reserved": torch.cuda.max_memory_reserved() if cuda else None,
+        **secs}), file=sys.stderr)
 sys.exit(rc)
 """
 
 
-def _run_cli(fa: Path, args: list, env: dict, dev, ref: dict) -> dict:
+def _run_cli(fa: Path, args: list, env: dict, dev, ref: dict,
+             timeout: float = CLI_TIMEOUT) -> dict:
     """One CLI process on `fa` with DEBWT_TRACE=1 (the tiers print their
-    plans): it must exit 0 and write the reference's three files. Returns
-    its route lines, the plan lines, the kernels' launch counts, the
-    ingest and build seconds it reports and the process's wall seconds."""
+    plans, SP lengths and blue counts): it must exit 0 within `timeout`
+    seconds and write the reference's three files. Returns its route
+    lines, the plan lines, the kernels' launch counts, the SP length and
+    blue count it traced (None where its tier prints none), the ingest
+    and build seconds and, under --timings, the stage seconds it reports,
+    what _CLI_MAIN prints after it (peak resident set, the card's peak
+    bytes, write and LF-walk seconds), its files' hashes, sizes and
+    sidecars, and the process's wall seconds."""
     import os
     import re
 
-    import numpy as np
+    from debwt_tpu_torch.io import read_sidecars
 
     obj = fa.parent / "out.bwt"
-    t0 = time.perf_counter()
+    t0, spawned = time.perf_counter(), time.time()
     run = subprocess.run(
         [sys.executable, "-c", _CLI_MAIN, "--device", dev.type, "-o", str(obj),
          *args, str(fa)],
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src"), DEBWT_TRACE="1",
                  **env),
-        cwd=fa.parent, capture_output=True, text=True, timeout=CLI_TIMEOUT)
-    wall = time.perf_counter() - t0
+        cwd=fa.parent, capture_output=True, text=True, timeout=timeout)
+    wall, reaped = time.perf_counter() - t0, time.time()
     se = run.stderr
     if run.returncode != 0:
         raise AssertionError(f"cli {' '.join(args)} exited {run.returncode}:\n{se}")
-    sharp = np.frombuffer(Path(f"{obj}.#").read_bytes(), "<u8")
-    dollar = int(np.frombuffer(Path(f"{obj}.$").read_bytes(), "<u8")[0])
-    got = (hashlib.sha256(obj.read_bytes()).hexdigest(),
-           hashlib.sha256(sharp.astype(np.int64).tobytes()).hexdigest(), dollar)
+    sharp, dollar = read_sidecars(str(obj))
+    with open(obj, "rb") as f:
+        obj_sha = hashlib.file_digest(f, "sha256").hexdigest()
+    got = (obj_sha, hashlib.sha256(sharp.tobytes()).hexdigest(), dollar)
     if got != (ref["obj_sha"], ref["sharp_sha"], ref["dollar"]):
         raise AssertionError(f"cli {' '.join(args)}: files differ from the "
                              "reference hashes")
     lines = se.splitlines()
-    launches = [ln for ln in lines if ln.startswith("[launches] ")]
-    for ln in lines:
-        if ln.startswith("[io] "):
-            note_written(children_wchar=json.loads(ln.split(" ", 1)[1])["wchar"])
+
+    def tagged(tag):
+        return [json.loads(ln.split(" ", 1)[1]) for ln in lines
+                if ln.startswith(f"[{tag}] ")]
+
+    for io in tagged("io"):
+        note_written(children_wchar=io["wchar"])
+    proc = tagged("process")[-1]
+    proc["start_s"] = proc.pop("entered_at") - spawned
+    proc["exit_s"] = reaped - proc.pop("returned_at")
+
+    def traced(pattern):
+        found = re.findall(pattern, se)
+        return int(found[-1]) if found else None
+
+    stages = re.findall(r"^\[debwt-torch\]   (.+?) +(-?[0-9.]+)s  \(", se, re.M)
     return {
         "args": args, "env": env,
         "route": [ln.split("route: ", 1)[1] for ln in lines if "route: " in ln],
         "plan": [ln for ln in lines if re.search(r"\] (plan|pass [AB]): ", ln)],
         "verify": [ln for ln in lines if "LF invertibility" in ln],
-        "launches": json.loads(launches[-1].split(" ", 1)[1]),
+        "launches": tagged("launches")[-1],
+        "sp_len": traced(r"\] SP string: (\d+) events"),
+        "n_blue": traced(r"\] blue entries: (\d+)"),
         "ingest_s": float(re.search(r"\(([0-9.]+)s ingest\)", se).group(1)),
         "build_s": float(re.search(r"BWT of \d+ chars in ([0-9.]+)s", se).group(1)),
+        "stage_s": {label: float(v) for label, v in stages},
+        "process": proc,
+        "hashes": dict(zip(("obj_sha", "sharp_sha", "dollar"), got)),
+        "file_bytes": {ext: os.path.getsize(f"{obj}{ext}") for ext in ("", ".#", ".$")},
+        "sharp_pos": sharp.tolist(),
         "process_s": wall,
     }
 
@@ -2144,16 +2259,16 @@ def _check_cli_run(tier: str, run: dict):
     follow the plan the tier printed."""
     import re
 
+    kind = tier.split("_")[0]
     route = {"fused": "single-device fused engine",
              "grouped": "grouped device-resident tier",
              "ooc": "out-of-core chunked tier",
-             "dist": "distributed over 1 devices"}[tier.split("_")[0]]
+             "dist": "distributed over 1 devices"}[kind]
     if not (len(run["route"]) == 1 and run["route"][0].startswith(route)):
         raise AssertionError(f"cli {tier}: route {run['route']}")
     plan = " ".join(run["plan"])
-    if tier == "grouped":
-        (G, n_chunks), = [tuple(map(int, m)) for m in re.findall(
-            r"plan: G=(\d+) groups, cap=\d+, chunk=\d+ x (\d+)", plan)]
+    if kind == "grouped":
+        G, _cap, _chunk, n_chunks, _ns_cap = _grouped_plan(run)
         if G < 4:
             raise AssertionError(f"cli grouped: {G} groups, want at least 4")
         want = {"window_keys": G * n_chunks, "window_keys_at": 0,
@@ -2171,6 +2286,17 @@ def _check_cli_run(tier: str, run: dict):
         want = EXPECTED_LAUNCHES
     if run["launches"] != want:
         raise AssertionError(f"cli {tier}: launches {run['launches']}, plan {want}")
+
+
+def _grouped_plan(run: dict) -> tuple:
+    """(G, cap, chunk, n_chunks, ns_cap) of the one plan line a grouped
+    CLI run traced."""
+    import re
+
+    (plan,) = [tuple(map(int, m)) for m in re.findall(
+        r"plan: G=(\d+) groups, cap=(\d+), chunk=(\d+) x (\d+), ns_cap=(\d+)",
+        " ".join(run["plan"]))]
+    return plan
 
 
 def _cli_kernel_shape(dev, rows: dict):
@@ -2272,7 +2398,8 @@ def main() -> int:
         written[name] = {"own_wchar": own_wchar() - own0,
                          **{k: v - w0[k] for k, v in _WRITTEN.items()}}
         say(f"[phase] {name}: {phase_s[name]:.1f}s, wrote "
-            f"{sum(written[name].values()) / 2**30:.2f} GiB")
+            f"{disk_bytes(written[name]) / 2**30:.2f} GiB to disk and "
+            f"{written[name]['tmpfs'] / 2**30:.2f} GiB to tmpfs")
         return out
 
     t_all = time.perf_counter()
@@ -2288,10 +2415,13 @@ def main() -> int:
     run("dist", phase_dist, dev, rows)
     run("cli", phase_cli, dev, rows)
     say(json.dumps({"phase_s": phase_s}))
-    # bytes each phase wrote: this process's write calls, its children's
-    # and the spilled outputs' mapped bytes
-    gib = {name: sum(v.values()) / 2**30 for name, v in written.items()}
+    # bytes each phase wrote to disk: this process's write calls, its
+    # children's and the spilled outputs' mapped bytes, less what went to
+    # a tmpfs (counted apart)
+    gib = {name: disk_bytes(v) / 2**30 for name, v in written.items()}
     say(json.dumps({"disk_written_gib": gib, "total_gib": sum(gib.values()),
+                    "tmpfs_written_gib": {name: v["tmpfs"] / 2**30
+                                          for name, v in written.items()},
                     "bytes": written}))
     say(f"[done] {time.perf_counter() - t_all:.1f}s")
     say(json.dumps({"kernels": list(rows.values())}))

@@ -610,9 +610,11 @@ def build_bwt_grouped(
     L = sp_pos.shape[0]
     rank = _sp_ranks_host(sp6, L, SP_CAP, dev, _say, mesh)
     _mark("SP rank")
+    _say(f"SP string: {L} events")
 
     n_blue = blue_fill(bwt6, blue_parts, rank, sp_pos, dev)
     _mark("blue fill")
+    _say(f"blue entries: {n_blue}")
 
     if config.check:
         check_char_counts(bwt6, coll)

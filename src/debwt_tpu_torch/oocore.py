@@ -530,8 +530,9 @@ def blue_fill(bwt6, blue_parts: list, rank, sp_pos, device) -> int:
 
 
 # characters a block of char_counts: at 3 Gbp np.bincount of the whole
-# array would widen it to 24 GB of intp
-_COUNT_BLOCK = 1 << 26
+# array would widen it to 24 GB of intp, and a block of 1 MiB keeps the
+# six compare-and-count passes over it in the cache, not in memory
+_COUNT_BLOCK = 1 << 20
 
 
 def char_counts(a: np.ndarray) -> np.ndarray:

@@ -128,6 +128,30 @@ def test_grouped_matches_jax_grouped(name):
         assert (1 << 61) <= int(splitters[-1]) < (1 << 62) - 1
 
 
+@pytest.mark.parametrize("name", ["multigroup", "branch_dense"])
+def test_trace_tells_sp_length_and_blue_count(name, monkeypatch, capsys):
+    """Under DEBWT_TRACE=1 the tier prints its SP length and blue count
+    in the out-of-core tier's words (what a CLI run is held to): both
+    equal the stats and the JAX grouped tier's on the same input."""
+    make, m, cap, chunk = CONFIGS[name]
+    coll = SequenceCollection.from_reads(make())
+    monkeypatch.setenv("DEBWT_TRACE", "1")
+    capsys.readouterr()
+    stats, jstats = {}, {}
+    build_bwt_grouped(coll, PipelineConfig(m=m), GroupedConfig(cap=cap, chunk=chunk),
+                      stats=stats, device="cpu")
+    lines = capsys.readouterr().err.splitlines()
+    jgrouped.build_bwt_grouped(
+        _jax_coll(coll), JaxConfig(m=m), jgrouped.GroupedConfig(cap=cap, chunk=chunk),
+        stats=jstats)
+    assert stats["sp_len"] == jstats["sp_len"] > 0
+    assert stats["n_blue"] == jstats["n_blue"] > 0
+    said = [ln for ln in lines if ln.startswith("[debwt-torch grouped] SP string")
+            or ln.startswith("[debwt-torch grouped] blue entries")]
+    assert said == [f"[debwt-torch grouped] SP string: {stats['sp_len']} events",
+                    f"[debwt-torch grouped] blue entries: {stats['n_blue']}"]
+
+
 def test_grouped_overflow_raises():
     # cap far below N/G with a single hot key: unsplittable
     coll = SequenceCollection.from_reads([np.zeros(3000, dtype=np.uint8)])
