@@ -1,0 +1,8 @@
+"""Seconds a job of the CLI's base encoding (io.fasta._encode on each
+chunk's kept bytes): the program's spans debwt.ingest.encode."""
+
+from benchmark.measure.program import stage_seconds
+
+
+def read(w):
+    return stage_seconds(w, "debwt.ingest.encode")

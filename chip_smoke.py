@@ -1398,7 +1398,8 @@ def phase_genome(dev, rows: dict):
         "mbps": (N - made["n_reads"]) / 1e6 / run["build_s"],
         "stage_s": run["stage_s"],
         "unmarked_s": run["build_s"] - sum(
-            v for k_, v in run["stage_s"].items() if not k_.startswith("groups.")),
+            v for k_, v in run["stage_s"].items()
+            if not k_.startswith("groups.") and k_ not in _CLI_LABELS),
         "vmhwm_bytes": proc["vmhwm_bytes"],
         "rss_peak_sampled_bytes": proc["rss_peak_sampled_bytes"],
         "host_peak_rss_bytes": proc["vmhwm_bytes"] or proc["rss_peak_sampled_bytes"],
@@ -2062,6 +2063,10 @@ def _run_cli(fa: Path, args: list, env: dict, dev, ref: dict,
         "sharp_pos": sharp.tolist(),
         "process_s": wall,
     }
+
+
+# the labels --timings prints beside the build's stages: the CLI's own
+_CLI_LABELS = ("ingest", "build", "packed", "write")
 
 
 def _nccl_answer(stderr: str) -> list:

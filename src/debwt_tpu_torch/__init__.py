@@ -31,6 +31,8 @@ multi-device tier):
   verify                 LF-walk invertibility check
   model / transfer_n     NumPy stage model; N-removal prep tool
   pipeline / api / cli   build_bwt, tier routing, command line
+  tracing                one recorder for every tier: profiler spans,
+                         stage seconds (timings) and counts (counters)
 
 The package imports torch, numpy and the standard library only.
 Entry points run on the CUDA card unless the caller passes

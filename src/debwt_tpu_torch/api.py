@@ -45,6 +45,7 @@ import sys
 import torch
 import torch.distributed as tdist
 
+from debwt_tpu_torch import tracing
 from debwt_tpu_torch.pipeline import (
     MAX_ROWS, BwtResult, build_bwt, resolve_device, rows_needed,
 )
@@ -100,8 +101,17 @@ def build(
     parallel.init_distributed). gcfg (a grouped.GroupedConfig) is handed
     to the grouped tier when the route takes it; stats to the grouped or
     the out-of-core tier, whichever builds. The fused engine and the
-    multi-device tier read neither."""
-    config = config or PipelineConfig()
+    multi-device tier read neither.
+
+    Traced as the span debwt.build, the decision as debwt.route and
+    the tier taken as debwt.fused, .grouped, .ooc or .dist
+    (tracing.py)."""
+    with tracing.span("build"):
+        return _route(coll, config or PipelineConfig(), device, verbose,
+                      gcfg, stats, n_devices)
+
+
+def _route(coll, config, device, verbose, gcfg, stats, n_devices):
     world = tdist.get_world_size() if tdist.is_initialized() else 1
     if world > 1:
         # a rank of a joined group builds on its own card on every
@@ -122,13 +132,17 @@ def build(
         from debwt_tpu_torch.parallel import dist_build_bwt, make_mesh
 
         _say(f"distributed over {n_devices} devices (requested)")
-        return dist_build_bwt(coll, config, make_mesh(n_devices, device=dev))
+        with tracing.span("dist"):
+            return dist_build_bwt(coll, config,
+                                  make_mesh(n_devices, device=dev))
 
-    rows, bound = rows_needed(coll, config.m), single_rows_bound(dev)
-    cap = os.environ.get("DEBWT_SINGLE_MAX_ROWS")
+    with tracing.span("route"):
+        rows, bound = rows_needed(coll, config.m), single_rows_bound(dev)
+        cap = os.environ.get("DEBWT_SINGLE_MAX_ROWS")
     if rows < (bound if cap is None else min(bound, int(cap))):
         _say("single-device fused engine")
-        return build_bwt(coll, config, device=dev)
+        with tracing.span("fused"):
+            return build_bwt(coll, config, device=dev)
 
     sharded = {}     # the mesh for sharded SP ranking, where there is one
     if world > 1:
@@ -139,7 +153,8 @@ def build(
         if -(-coll.bwt_len // world) < bound:
             _say(f"distributed over all {world} ranks (N={coll.bwt_len} "
                  "exceeds the single-device bound)")
-            return dist_build_bwt(coll, config, sharded["mesh"])
+            with tracing.span("dist"):
+                return dist_build_bwt(coll, config, sharded["mesh"])
 
     from debwt_tpu_torch.grouped import (
         MAX_N, GroupOverflow, build_bwt_grouped,
@@ -148,8 +163,9 @@ def build(
     if coll.bwt_len < MAX_N and os.environ.get("DEBWT_FORCE_OOC") != "1":
         _say(f"grouped device-resident tier (N={coll.bwt_len}, one device)")
         try:
-            return build_bwt_grouped(coll, config, gcfg, stats, device=dev,
-                                     **sharded)
+            with tracing.span("grouped"):
+                return build_bwt_grouped(coll, config, gcfg, stats,
+                                         device=dev, **sharded)
         except GroupOverflow as e:
             # a single node key outgrew the group cap (pathological
             # repeat mass); the out-of-core tier's giant-run path takes it
@@ -157,4 +173,5 @@ def build(
     _say(f"out-of-core chunked tier (N={coll.bwt_len}, {world} rank(s))")
     from debwt_tpu_torch.oocore import build_bwt_ooc
 
-    return build_bwt_ooc(coll, config, stats=stats, device=dev, **sharded)
+    with tracing.span("ooc"):
+        return build_bwt_ooc(coll, config, stats=stats, device=dev, **sharded)

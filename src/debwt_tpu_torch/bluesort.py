@@ -26,9 +26,10 @@ def sp_suffix_ranks(sp6_ext: torch.Tensor, L_dyn: int | None = None):
     (true-length semantics, all-distinct early exit); zero-tail and
     end-sentinel orderings coincide because 0 is the minimum char
     (first nonzero real char wins, else the shorter suffix is
-    smaller)."""
+    smaller). Its rounds are traced as the spans rank.enqueue and
+    rank.wait (tracing.py)."""
     from debwt_tpu_torch.engine import _suffix_ranks
 
     if L_dyn is None:
         L_dyn = sp6_ext.shape[0]
-    return _suffix_ranks(sp6_ext, int(L_dyn))
+    return _suffix_ranks(sp6_ext, int(L_dyn), stage="rank")

@@ -21,6 +21,11 @@ rank walks its own copy of the result and exits 2 if it fails.
 
 The routing variables of api.py (DEBWT_SINGLE_MAX_ROWS, DEBWT_FORCE_OOC,
 DEBWT_GROUPED_CAP) steer the tier a build takes.
+
+--timings is the operator's view of a job: after the write it prints
+the seconds of every stage the job recorded (tracing.py: the ingest,
+the build's stages, the build, the result's pack, the write) and every
+count (SP events, blue entries, rows, bytes each way, syncs).
 """
 
 from __future__ import annotations
@@ -58,35 +63,41 @@ def main(argv=None):
     p.add_argument("--check", action="store_true",
                    help="enable internal invariant checks")
     p.add_argument("--timings", action="store_true",
-                   help="print per-stage wall time + Mbp/s (the "
-                        "reference prints these on every run, "
-                        "src/main.c:86-170)")
+                   help="print per-stage wall time + Mbp/s and the job's "
+                        "counts (the reference prints its stage times "
+                        "on every run, src/main.c:86-170)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="device to build on (default: the CUDA card)")
     args = p.parse_args(argv)
 
     import torch.distributed as tdist
 
+    from debwt_tpu_torch import tracing
     from debwt_tpu_torch.parallel.mesh import init_distributed
 
-    # join the process group the DEBWT_* variables name, if any; leave
-    # no group this call made (--dist 1 makes a one-rank group itself)
-    had_group = tdist.is_initialized()
-    if not had_group:
-        init_distributed(backend="gloo" if args.device == "cpu" else "nccl")
-    rank0 = not tdist.is_initialized() or tdist.get_rank() == 0
-    try:
-        return _run(args, rank0)
-    finally:
-        if not had_group and tdist.is_initialized():
-            tdist.destroy_process_group()
+    with tracing.recording() as rec, tracing.span("cli"):
+        # join the process group the DEBWT_* variables name, if any;
+        # leave no group this call made (--dist 1 makes a one-rank
+        # group itself)
+        had_group = tdist.is_initialized()
+        if not had_group:
+            init_distributed(
+                backend="gloo" if args.device == "cpu" else "nccl")
+        rank0 = not tdist.is_initialized() or tdist.get_rank() == 0
+        try:
+            return _run(args, rank0, rec)
+        finally:
+            if not had_group and tdist.is_initialized():
+                tdist.destroy_process_group()
 
 
-def _run(args, rank0: bool) -> int:
+def _run(args, rank0: bool, rec) -> int:
+    """The job; rec is its recording (tracing.py)."""
     def say(msg):
         if rank0:
             print(msg, file=sys.stderr)
 
+    from debwt_tpu_torch import tracing
     from debwt_tpu_torch.api import build
     from debwt_tpu_torch.io import read_collection, write_bwt
     from debwt_tpu_torch.types import PipelineConfig
@@ -102,28 +113,32 @@ def _run(args, rank0: bool) -> int:
             say(f"cannot create {args.obj}: {e}")
             return 1
 
-    t0 = time.time()
-    coll = read_collection(args.source, args.n_policy, args.seed)
+    with tracing.span("ingest", "ingest"):
+        coll = read_collection(args.source, args.n_policy, args.seed)
     say(f"[debwt-torch] {coll.n_reads} reads, "
         f"{(coll.bwt_len - coll.n_reads)/1e6:.2f} Mbp "
-        f"({time.time()-t0:.2f}s ingest)")
+        f"({rec.timings['ingest']:.2f}s ingest)")
     config = PipelineConfig(m=args.m, check=args.check)
 
-    t1 = time.time()
     dist = {"n_devices": args.dist} if args.dist else {}
+    t0 = time.perf_counter()
     result = build(coll, config, device=args.device, verbose=rank0, **dist)
-    dt = time.time() - t1
+    dt = time.perf_counter() - t0
+    tracing.add("build", dt)
     say(f"[debwt-torch] BWT of {coll.bwt_len} chars in {dt:.2f}s "
         f"({coll.bwt_len/1e6/dt:.2f} Mbp/s)")
-    if args.timings and result.timings:
-        mbp = coll.bwt_len / 1e6
-        for label, secs in result.timings.items():
-            say(f"[debwt-torch]   {label:28s} {secs:8.3f}s"
-                f"  ({mbp / max(secs, 1e-9):8.2f} Mbp/s)")
 
     if rank0:
-        write_bwt(result, args.obj)
+        with tracing.span("write", "write"):
+            write_bwt(result, args.obj)
     say(f"[debwt-torch] wrote {args.obj} (+ .#, .$)")
+    if args.timings:
+        mbp = coll.bwt_len / 1e6
+        for label, secs in rec.timings.items():
+            say(f"[debwt-torch]   {label:28s} {secs:8.3f}s"
+                f"  ({mbp / max(secs, 1e-9):8.2f} Mbp/s)")
+        for name, n in rec.counters.items():
+            say(f"[debwt-torch]   {name:28s} {n:12d}")
 
     if args.verify:
         from debwt_tpu_torch.verify import lf_verify

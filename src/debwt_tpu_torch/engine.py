@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from debwt_tpu_torch import ops
+from debwt_tpu_torch import ops, tracing
 from debwt_tpu_torch.kernels.seg_or import seg_scan_or, seg_suffix_or
 
 I32 = torch.int32
@@ -245,85 +245,89 @@ def stage_finish(
     dev = x2p.device
     k = m - 1
 
-    # SP stream: node events arrive as ready-made pos<<3|char keys from
-    # stage_graph; special-branch events get the same packing here —
-    # their SP char is the raw text char k ahead (special positions have
-    # dist < k, so the separator-tail branch never applies). One sort
-    # yields the SP stream in text order with the char in the low bits.
-    brv = spec_branch_pos < n_real
-    br = torch.where(brv, spec_branch_pos, N).to(I64)
-    br_c = x2p[(br + k).clamp(max=x2p.shape[0] - 1)].to(I64)
-    br_key = torch.where(brv, (br << 3) | br_c, SENT)
-    allk = torch.cat([ev_key, br_key])
-    if allk.shape[0] < L_cap:        # caps can exceed R on tiny inputs
-        allk = torch.cat([
-            allk, torch.full((L_cap - allk.shape[0],), SENT, dtype=I64, device=dev)
-        ])
-    key_s = torch.sort(allk).values[:L_cap]
-    sp_pos = (key_s >> 3).to(I32)    # SENT>>3 = 2^29-1 >= any cap
-    sp6 = torch.where(sp_pos < N, (key_s & 7).to(U8), 0)
+    with tracing.span("finish.enqueue"):
+        # SP stream: node events arrive as ready-made pos<<3|char keys from
+        # stage_graph; special-branch events get the same packing here —
+        # their SP char is the raw text char k ahead (special positions have
+        # dist < k, so the separator-tail branch never applies). One sort
+        # yields the SP stream in text order with the char in the low bits.
+        brv = spec_branch_pos < n_real
+        br = torch.where(brv, spec_branch_pos, N).to(I64)
+        br_c = x2p[(br + k).clamp(max=x2p.shape[0] - 1)].to(I64)
+        br_key = torch.where(brv, (br << 3) | br_c, SENT)
+        allk = torch.cat([ev_key, br_key])
+        if allk.shape[0] < L_cap:        # caps can exceed R on tiny inputs
+            allk = torch.cat([
+                allk, torch.full((L_cap - allk.shape[0],), SENT, dtype=I64,
+                                 device=dev)
+            ])
+        key_s = torch.sort(allk).values[:L_cap]
+        sp_pos = (key_s >> 3).to(I32)    # SENT>>3 = 2^29-1 >= any cap
+        sp6 = torch.where(sp_pos < N, (key_s & 7).to(U8), 0)
     # suffix ranks over the true length (end of string sorts below every
     # char), so the rank loop ends in O(log max-tie) rounds
-    L_dyn = int((sp_pos < N).sum())
+    L_dyn = tracing.wait("finish", lambda: int((sp_pos < N).sum()))
     rank = _suffix_ranks(sp6, L_dyn)
+    with tracing.span("finish.enqueue"):
+        # blue entries straight from row space. Pad rows share key N and
+        # carry payload N, so their order is inert.
+        bk = torch.where(mi_row, r_pos, N)
+        sg = torch.where(mi_row, seg_start, N)
+        if bk.shape[0] < B_cap:          # caps can exceed R on tiny inputs
+            pad = torch.full((B_cap - bk.shape[0],), N, dtype=I32, device=dev)
+            bk = torch.cat([bk, pad])
+            sg = torch.cat([sg, pad])
+        bp, b_base = ops.msort((bk, sg), num_keys=1)
+        bp, b_base = bp[:B_cap], b_base[:B_cap]
+        b_base = torch.where(bp < N, b_base, N)
+        bpc = bp.clamp(max=N - 1)
+        # sp index of a position = #SP events strictly before it, by
+        # merged-sort counting: events keyed 2p+1 sort AFTER a query keyed
+        # 2p, so an event AT the query position is not counted
+        keys2 = torch.cat([sp_pos.clamp(max=N) * 2 + 1, bp * 2])
+        pay = torch.cat([
+            torch.full((L_cap,), -1, dtype=I32, device=dev),
+            torch.arange(B_cap, dtype=I32, device=dev),
+        ])
+        _k_s, p_s = ops.msort((keys2, pay), num_keys=1)
+        is_ev = (p_s < 0).to(I32)
+        before = torch.cumsum(is_ev, 0, dtype=I32) - is_ev
+        sp_idx = torch.zeros(B_cap + 1, dtype=I32, device=dev)
+        sp_idx[torch.where(p_s >= 0, p_s, B_cap).to(I64)] = before   # B_cap: dropped
+        b_rank = rank[sp_idx[:B_cap].clamp(max=L_cap - 1).to(I64)]
+        # key3 = bp<<3 | bwt_char keeps equal-(block, rank) entries in
+        # ascending-position order (the reference's queue-drain discipline,
+        # src/generateSP.c:662-680) while the char rides the key
+        b_pc = (bp.to(I64) << 3) | bwt_char[bpc.to(I64)].to(I64)
+        base_s, _r, pc_s = ops.msort((b_base, b_rank, b_pc), num_keys=3)
+        char_s = (pc_s & 7).to(U8)
+        idx = torch.arange(B_cap, dtype=I32, device=dev)
+        first = _changed(base_s)
+        first[0] = True
+        within = idx - torch.cummax(torch.where(first, idx, -1), 0).values
+        tgt = torch.where(base_s < N, base_s + within, N).clamp(max=N)
+        bwt6 = torch.cat([bwt6_partial, bwt6_partial.new_zeros(1)])
+        bwt6[tgt.to(I64)] = char_s                                    # N: dropped
+        bwt6 = bwt6[:N]
+        # zero the bucket-padding tail so packed words are clean
+        bwt6[n_real:] = 0
+        packed = ops.pack_2bit_words(bwt6.clamp(max=3))
+        # sidecars + conservation counts on the device (keeps d2h tiny)
+        is_sharp = bwt6 == 4
+        sharp_rows, sharp_ok = _compact_rows(is_sharp, n_sharp_cap)
+        sharp = torch.where(sharp_ok, sharp_rows, N)
+        n_sharp = is_sharp.sum()
+        dollar = torch.argmax((bwt6 == 5).to(U8))   # exactly one '$'
+        counts6 = torch.bincount(bwt6[:n_real].to(I64), minlength=6)
+        return bwt6, packed, sharp, dollar, n_sharp, counts6
 
-    # blue entries straight from row space. Pad rows share key N and
-    # carry payload N, so their order is inert.
-    bk = torch.where(mi_row, r_pos, N)
-    sg = torch.where(mi_row, seg_start, N)
-    if bk.shape[0] < B_cap:          # caps can exceed R on tiny inputs
-        pad = torch.full((B_cap - bk.shape[0],), N, dtype=I32, device=dev)
-        bk = torch.cat([bk, pad])
-        sg = torch.cat([sg, pad])
-    bp, b_base = ops.msort((bk, sg), num_keys=1)
-    bp, b_base = bp[:B_cap], b_base[:B_cap]
-    b_base = torch.where(bp < N, b_base, N)
-    bpc = bp.clamp(max=N - 1)
-    # sp index of a position = #SP events strictly before it, by
-    # merged-sort counting: events keyed 2p+1 sort AFTER a query keyed
-    # 2p, so an event AT the query position is not counted
-    keys2 = torch.cat([sp_pos.clamp(max=N) * 2 + 1, bp * 2])
-    pay = torch.cat([
-        torch.full((L_cap,), -1, dtype=I32, device=dev),
-        torch.arange(B_cap, dtype=I32, device=dev),
-    ])
-    _k_s, p_s = ops.msort((keys2, pay), num_keys=1)
-    is_ev = (p_s < 0).to(I32)
-    before = torch.cumsum(is_ev, 0, dtype=I32) - is_ev
-    sp_idx = torch.zeros(B_cap + 1, dtype=I32, device=dev)
-    sp_idx[torch.where(p_s >= 0, p_s, B_cap).to(I64)] = before   # B_cap: dropped
-    b_rank = rank[sp_idx[:B_cap].clamp(max=L_cap - 1).to(I64)]
-    # key3 = bp<<3 | bwt_char keeps equal-(block, rank) entries in
-    # ascending-position order (the reference's queue-drain discipline,
-    # src/generateSP.c:662-680) while the char rides the key
-    b_pc = (bp.to(I64) << 3) | bwt_char[bpc.to(I64)].to(I64)
-    base_s, _r, pc_s = ops.msort((b_base, b_rank, b_pc), num_keys=3)
-    char_s = (pc_s & 7).to(U8)
-    idx = torch.arange(B_cap, dtype=I32, device=dev)
-    first = _changed(base_s)
-    first[0] = True
-    within = idx - torch.cummax(torch.where(first, idx, -1), 0).values
-    tgt = torch.where(base_s < N, base_s + within, N).clamp(max=N)
-    bwt6 = torch.cat([bwt6_partial, bwt6_partial.new_zeros(1)])
-    bwt6[tgt.to(I64)] = char_s                                    # N: dropped
-    bwt6 = bwt6[:N]
-    # zero the bucket-padding tail so packed words are clean
-    bwt6[n_real:] = 0
-    packed = ops.pack_2bit_words(bwt6.clamp(max=3))
-    # sidecars + conservation counts on the device (keeps d2h tiny)
-    is_sharp = bwt6 == 4
-    sharp_rows, sharp_ok = _compact_rows(is_sharp, n_sharp_cap)
-    sharp = torch.where(sharp_ok, sharp_rows, N)
-    n_sharp = is_sharp.sum()
-    dollar = torch.argmax((bwt6 == 5).to(U8))   # exactly one '$'
-    counts6 = torch.bincount(bwt6[:n_real].to(I64), minlength=6)
-    return bwt6, packed, sharp, dollar, n_sharp, counts6
 
-
-def _suffix_ranks(sp6: torch.Tensor, L_dyn: int) -> torch.Tensor:
+def _suffix_ranks(sp6: torch.Tensor, L_dyn: int,
+                  stage: str = "finish") -> torch.Tensor:
     """Suffix ranks of sp6[0:L_dyn] by prefix TRIPLING (each round sorts
     on (rank[i], rank[i+h], rank[i+2h]), covering prefix 3h), one host
-    sync per round to stop as soon as all ranks are distinct.
+    sync per round to stop as soon as all ranks are distinct. Rounds
+    are traced as the spans <stage>.enqueue and <stage>.wait.
 
     Ranks are order-encodings, not dense: round 0 packs 10 biased chars
     (0 = past-end sentinel, 1..6 = chars, 3 bits each = 30 bits) into
@@ -335,15 +339,16 @@ def _suffix_ranks(sp6: torch.Tensor, L_dyn: int) -> torch.Tensor:
     """
     M = sp6.shape[0]
     dev = sp6.device
-    idx = torch.arange(M, dtype=I32, device=dev)
     H0 = 10
-    real = idx < L_dyn
-    c = torch.where(real, sp6.to(I32) + 1, 0)
-    c_pad = torch.cat([c, torch.zeros(H0, dtype=I32, device=dev)])
-    rank = torch.zeros(M, dtype=I32, device=dev)
-    for i in range(H0):                  # static slices, not gathers
-        rank = (rank << 3) | c_pad[i : i + M]
-    rank = torch.where(real, rank, idx - M)   # pads: distinct, negative
+    with tracing.span(f"{stage}.enqueue"):
+        idx = torch.arange(M, dtype=I32, device=dev)
+        real = idx < L_dyn
+        c = torch.where(real, sp6.to(I32) + 1, 0)
+        c_pad = torch.cat([c, torch.zeros(H0, dtype=I32, device=dev)])
+        rank = torch.zeros(M, dtype=I32, device=dev)
+        for i in range(H0):                  # static slices, not gathers
+            rank = (rank << 3) | c_pad[i : i + M]
+        rank = torch.where(real, rank, idx - M)   # pads: distinct, negative
 
     def look(rank, step):
         out = torch.full((M,), -1, dtype=I32, device=dev)
@@ -354,15 +359,17 @@ def _suffix_ranks(sp6: torch.Tensor, L_dyn: int) -> torch.Tensor:
 
     step = H0
     while step < M:
-        r2 = look(rank, step)
-        r3 = look(rank, 2 * step)
-        r_s, r2_s, r3_s, i_s = ops.msort((rank, r2, r3, idx), num_keys=3)
-        new = _changed(r_s) | _changed(r2_s) | _changed(r3_s)
-        new[0] = True
-        csum = torch.cumsum(new.to(I32), 0, dtype=I32)
-        rank = torch.empty_like(rank)
-        rank[i_s.to(I64)] = csum - 1
+        with tracing.span(f"{stage}.enqueue"):
+            r2 = look(rank, step)
+            r3 = look(rank, 2 * step)
+            r_s, r2_s, r3_s, i_s = ops.msort((rank, r2, r3, idx), num_keys=3)
+            new = _changed(r_s) | _changed(r2_s) | _changed(r3_s)
+            new[0] = True
+            csum = torch.cumsum(new.to(I32), 0, dtype=I32)
+            rank = torch.empty_like(rank)
+            rank[i_s.to(I64)] = csum - 1
         step *= 3
-        if int(csum[-1]) == M:
+        tracing.count("rank_rounds")
+        if tracing.wait(stage, lambda: int(csum[-1])) == M:
             break
     return rank

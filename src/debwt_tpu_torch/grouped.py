@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from debwt_tpu_torch import constants as K
-from debwt_tpu_torch import engine, ops
+from debwt_tpu_torch import engine, ops, tracing
 from debwt_tpu_torch.golden import _UNPACK4   # fill2 byte -> 4 chars
 from debwt_tpu_torch.kernels.seg_or import seg_scan_or
 from debwt_tpu_torch.kernels.window_keys import window_keys as _wk_counter
@@ -402,6 +402,7 @@ def _plan_groups(coll, k: int, cap: int, attempt: int):
     return G, splitters
 
 
+@tracing.recorded
 def build_bwt_grouped(
     coll: SequenceCollection,
     config: PipelineConfig | None = None,
@@ -430,8 +431,7 @@ def build_bwt_grouped(
             "route larger collections to the out-of-core tier"
         )
     trace = os.environ.get("DEBWT_TRACE") == "1"
-    timings: dict = {}
-    _t0 = [time.time()]
+    timings = tracing.current().timings
     launches0 = (_wk_counter.launches, seg_scan_or.launches)
 
     def _say(msg):
@@ -442,16 +442,10 @@ def build_bwt_grouped(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def _mark(label):
-        _sync()
-        now = time.time()
-        timings[label] = timings.get(label, 0.0) + (now - _t0[0])
-        _t0[0] = now
-
     sp = build_special(coll, m)
     n_spec = sp.spec_tfill.shape[0]
     assert n_spec < (1 << 28), n_spec
-    _mark("special module (host)")
+    tracing.mark("special module (host)", dev)
 
     C = min(gcfg.chunk, _pow2(max(1024, N)))
     C -= C % 16
@@ -473,7 +467,7 @@ def build_bwt_grouped(
     ).to(dev)
     del x2ext
     sep = coll.sep.astype(np.int64)
-    _mark("text pack (host)")
+    tracing.mark("text pack (host)", dev)
 
     # special row operands (the engine's T-filled m-window trick:
     # spec key = node62 << 2 | T); spec_tfill IS the k-char node key —
@@ -523,7 +517,7 @@ def build_bwt_grouped(
         base = 0
         overflow = False
         for g in range(G):
-            t0 = time.time()
+            t0 = time.perf_counter()
             lo62 = int(splitters[g - 1]) if g else 0
             hi62 = int(splitters[g]) if g < G - 1 else 0
             bkey, bord, bf8, n_main = _select_group(
@@ -532,11 +526,11 @@ def build_bwt_grouped(
             )
             n_selected += 1
             _sync()
-            fine["select"] += time.time() - t0
+            fine["select"] += time.perf_counter() - t0
             if select_peak is None and dev.type == "cuda":
                 # the allocator's peak so far: the first selection's own
                 select_peak = torch.cuda.max_memory_allocated(dev)
-            t0 = time.time()
+            t0 = time.perf_counter()
             if n_main > cap_run:
                 _say(f"group {g} overflow: {n_main} rows > cap "
                      f"{cap_run}; retrying with more groups")
@@ -558,8 +552,8 @@ def build_bwt_grouped(
             )
             nb = (n_g + 3) // 4
             _sync()
-            fine["classify"] += time.time() - t0
-            t0 = time.time()
+            fine["classify"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
             f2 = fill2[:nb].cpu().numpy()
             key_h = b_key.cpu().numpy()
             sgc_h = b_sgc.cpu().numpy()
@@ -578,7 +572,7 @@ def build_bwt_grouped(
                     (sgc_h[is_bl] & 7).astype(np.uint8),
                 ))
             base += n_g
-            fine["fetch"] += time.time() - t0
+            fine["fetch"] += time.perf_counter() - t0
             _say(f"group {g}: rows={n_g} sp={L_g} blue={B_g} "
                  f"base={base}")
         if not overflow:
@@ -593,14 +587,14 @@ def build_bwt_grouped(
         )
     assert base == N, (base, N)
     del x2w_ext
-    _mark("group passes (device)")
+    tracing.mark("group passes (device)", dev)
     for kk, vv in fine.items():
-        timings[f"groups.{kk}"] = round(vv, 3)
+        tracing.add(f"groups.{kk}", round(vv, 3))
     # the plan, the splitter sample, the special rows' upload and the
     # allocation of the host BWT: the group passes less the three above
-    timings["groups.other"] = round(
+    tracing.add("groups.other", round(
         timings["group passes (device)"] - sum(fine.values()), 3
-    )
+    ))
 
     # ---- SP string + ranks + blue fill: the ooc back half ----
     x2p = np.concatenate(
@@ -609,20 +603,22 @@ def build_bwt_grouped(
     sp_pos, sp6 = sp_string(ev_parts, sp.spec_branch_pos, sep, x2p, N, k)
     L = sp_pos.shape[0]
     rank = _sp_ranks_host(sp6, L, SP_CAP, dev, _say, mesh)
-    _mark("SP rank")
+    tracing.mark("SP rank", dev)
     _say(f"SP string: {L} events")
 
     n_blue = blue_fill(bwt6, blue_parts, rank, sp_pos, dev)
-    _mark("blue fill")
+    tracing.mark("blue fill", dev)
     _say(f"blue entries: {n_blue}")
+    tracing.count("sp_events", L)
+    tracing.count("blue_entries", n_blue)
 
     if config.check:
         check_char_counts(bwt6, coll)
-    _mark("count check (host)")
+    tracing.mark("count check (host)", dev)
     (sharp,) = np.nonzero(bwt6 == K.SHARP)
     (dollar,) = np.nonzero(bwt6 == K.DOLLAR)
     assert dollar.shape[0] == 1, dollar
-    _mark("sidecars (host)")
+    tracing.mark("sidecars (host)", dev)
 
     if stats is not None:
         stats.update(
@@ -642,4 +638,5 @@ def build_bwt_grouped(
         _bwt6=bwt6,
         _n=N,
         timings=timings,
+        counters=tracing.current().counters,
     )

@@ -32,6 +32,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from debwt_tpu_torch import tracing
+
 # IUPAC ambiguity codes -> compatible base sets (transferN randTable)
 IUPAC = {
     "R": "AG", "Y": "CT", "S": "GC", "W": "AT", "K": "GT", "M": "AC",
@@ -101,7 +103,8 @@ def read_collection(
     from debwt_tpu_torch.types import SequenceCollection
 
     codes, lengths, _ = _stream_reads(path, n_policy, seed, chunk_bytes, False)
-    return SequenceCollection.from_concat(codes, lengths)
+    with tracing.span("ingest.join"):
+        return SequenceCollection.from_concat(codes, lengths)
 
 
 def read_reads(
@@ -132,70 +135,84 @@ def _stream_reads(path, n_policy, seed, chunk_bytes, with_names):
 
     def _region(region: bytes):
         nonlocal base, lines_seen, region_i
-        buf = np.frombuffer(region, dtype=np.uint8)
-        starts, ends = _line_table(buf)
-        if starts.size == 0:
-            return
-        if fmt == "fasta":
-            is_rec = buf[starts] == ord(">")
-            is_body = ~is_rec
-            is_name = is_rec
-        else:
-            phase = (lines_seen + np.arange(starts.shape[0])) % 4
-            is_rec = phase == 1       # the sequence line IS the record
-            is_body = is_rec
-            is_name = phase == 0
-            lines_seen += starts.shape[0]
-        if with_names:
-            for s0, e0 in zip(starts[is_name], ends[is_name]):
-                names.append(_name(region[s0 + 1 : e0], len(names)))
-        keep = _span_mask(buf, starts[is_body], ends[is_body])
-        # kept length per line (line body minus CRs) -> record starts
-        # by a LINE-level cumsum; no per-byte int64 scan
-        crs = np.nonzero(buf == ord("\r"))[0]
-        body_len = ends - starts
-        if crs.size:
-            body_len = body_len - (
-                np.searchsorted(crs, ends) - np.searchsorted(crs, starts)
-            )
-        body_len = np.where(is_body, body_len, 0)
-        line_off = np.concatenate([[0], np.cumsum(body_len)[:-1]])
-        rec_off = line_off[is_rec]
-        codes = _encode(buf[keep], n_policy, seed + region_i)
-        bound_parts.append(base + rec_off)
-        chunks.append(codes)
-        base += codes.shape[0]
-        region_i += 1
+        with tracing.span("ingest.parse"):
+            buf = np.frombuffer(region, dtype=np.uint8)
+            starts, ends = _line_table(buf)
+            if starts.size == 0:
+                return
+            if fmt == "fasta":
+                is_rec = buf[starts] == ord(">")
+                is_body = ~is_rec
+                is_name = is_rec
+            else:
+                phase = (lines_seen + np.arange(starts.shape[0])) % 4
+                is_rec = phase == 1       # the sequence line IS the record
+                is_body = is_rec
+                is_name = phase == 0
+                lines_seen += starts.shape[0]
+            if with_names:
+                for s0, e0 in zip(starts[is_name], ends[is_name]):
+                    names.append(_name(region[s0 + 1 : e0], len(names)))
+            keep = _span_mask(buf, starts[is_body], ends[is_body])
+            # kept length per line (line body minus CRs) -> record starts
+            # by a LINE-level cumsum; no per-byte int64 scan
+            crs = np.nonzero(buf == ord("\r"))[0]
+            body_len = ends - starts
+            if crs.size:
+                body_len = body_len - (
+                    np.searchsorted(crs, ends) - np.searchsorted(crs, starts)
+                )
+            body_len = np.where(is_body, body_len, 0)
+            line_off = np.concatenate([[0], np.cumsum(body_len)[:-1]])
+            rec_off = line_off[is_rec]
+        with tracing.span("ingest.encode"):
+            codes = _encode(buf[keep], n_policy, seed + region_i)
+            bound_parts.append(base + rec_off)
+            chunks.append(codes)
+            base += codes.shape[0]
+            region_i += 1
 
+    # traced per chunk: the file read with the carry joined on
+    # (ingest.read), the line table, span mask and CR count
+    # (ingest.parse), the encoding (ingest.encode); the final
+    # concatenation is ingest.join
     with opener(path, "rb") as f:
         while True:
-            data = f.read(chunk_bytes)
-            if not data:
-                break
-            buf = carry + data
-            if fmt is None:
-                if buf[:1] == b"@":
-                    fmt = "fastq"
-                elif buf[:1] == b">":
-                    fmt = "fasta"
-                else:
-                    raise ValueError(
-                        f"{path}: not FASTA/FASTQ (starts with {buf[:1]!r})"
-                    )
-            cut = buf.rfind(b"\n") + 1
-            if cut == 0:
-                carry = buf
-                continue
-            carry = buf[cut:]
-            _region(buf[:cut])
+            with tracing.span("ingest.read"):
+                data = f.read(chunk_bytes)
+                if not data:
+                    break
+                buf = carry + data
+                if fmt is None:
+                    if buf[:1] == b"@":
+                        fmt = "fastq"
+                    elif buf[:1] == b">":
+                        fmt = "fasta"
+                    else:
+                        raise ValueError(
+                            f"{path}: not FASTA/FASTQ (starts with "
+                            f"{buf[:1]!r})"
+                        )
+                cut = buf.rfind(b"\n") + 1
+                if cut == 0:
+                    carry = buf
+                    continue
+                carry = buf[cut:]
+                region = buf[:cut]
+            _region(region)
+            del region
     if carry:
-        _region(carry + b"\n")
+        with tracing.span("ingest.read"):
+            region = carry + b"\n"
+        _region(region)
+        del region
     if fmt is None:
         raise ValueError(f"empty input: {path}")
-    codes = (np.concatenate(chunks) if chunks
-             else np.zeros(0, dtype=np.uint8))
-    starts_all = (np.concatenate(bound_parts) if bound_parts
-                  else np.zeros(0, dtype=np.int64))
+    with tracing.span("ingest.join"):
+        codes = (np.concatenate(chunks) if chunks
+                 else np.zeros(0, dtype=np.uint8))
+        starts_all = (np.concatenate(bound_parts) if bound_parts
+                      else np.zeros(0, dtype=np.int64))
     if starts_all.size == 0:
         raise ValueError(f"no records parsed from {path}")
     lengths = np.diff(np.concatenate([starts_all, [codes.shape[0]]]))

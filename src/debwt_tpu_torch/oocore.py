@@ -61,13 +61,12 @@ import hashlib
 import json
 import os
 import sys
-import time
 
 import numpy as np
 import torch
 
 from debwt_tpu_torch import constants as K
-from debwt_tpu_torch import engine, ops
+from debwt_tpu_torch import engine, ops, tracing
 from debwt_tpu_torch.bluesort import sp_suffix_ranks
 from debwt_tpu_torch.io import native
 from debwt_tpu_torch.kernels.seg_or import seg_scan_or
@@ -560,6 +559,7 @@ def check_char_counts(bwt6: np.ndarray, coll: SequenceCollection):
 # ---------------------------------------------------------------------------
 
 
+@tracing.recorded
 def build_bwt_ooc(
     coll: SequenceCollection,
     config: PipelineConfig | None = None,
@@ -595,8 +595,7 @@ def build_bwt_ooc(
     m, k = config.m, config.k
     N = coll.bwt_len
     trace = os.environ.get("DEBWT_TRACE") == "1"
-    timings: dict = {}
-    _t0 = [time.time()]
+    timings = tracing.current().timings
     launches0 = (_wk_counter.launches, _wk_at_counter.launches,
                  seg_scan_or.launches)
 
@@ -604,15 +603,8 @@ def build_bwt_ooc(
         if trace:
             print(f"[debwt-torch ooc] {msg}", file=sys.stderr)
 
-    def _mark(label):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.time()
-        timings[label] = timings.get(label, 0.0) + (now - _t0[0])
-        _t0[0] = now
-
     sp = build_special(coll, m)
-    _mark("special module (host)")
+    tracing.mark("special module (host)", dev)
     nb = ooc.n_buckets
     C = min(ooc.chunk, _pow2(N))
     n_chunks = -(-N // C)
@@ -637,7 +629,7 @@ def build_bwt_ooc(
     # the packed text on the device, for pass A's chunks (each reads C +
     # k - 1 codes from its base) and pass B's rows; a resume packs anew
     words = _pack_text(x2p, max(x2p.shape[0], n_chunks * C + k), dev)
-    _mark("text pack (host)")
+    tracing.mark("text pack (host)", dev)
 
     # ---- pass A: keys on the device, metadata + binning on the host ----
     if state is not None:
@@ -676,7 +668,7 @@ def build_bwt_ooc(
         del pending
         _malloc_trim()
         store.close()
-        _mark("pass A (keys + binning)")
+        tracing.mark("pass A (keys + binning)", dev)
         _say(f"pass A: {n_chunks} chunks of {C}, bucket rows "
              f"max={int(store.sizes.max())} total={int(store.sizes.sum())}")
         if ckpt:
@@ -689,7 +681,7 @@ def build_bwt_ooc(
     else:
         # checkpoint resume skipped pass A — reset the timing origin so
         # the attach time doesn't get folded into "pass B"
-        _mark("pass A (resume attach)")
+        tracing.mark("pass A (resume attach)", dev)
 
     # special rows -> buckets (true suffix order preserved per bucket
     # because splitters partition the key space monotonically)
@@ -925,7 +917,7 @@ def build_bwt_ooc(
         _malloc_trim()
     assert base_box[0] == N, (base_box[0], N)
     del staging, k16_b, ord_b, arange_b, words
-    _mark("pass B (bucket sorts)")
+    tracing.mark("pass B (bucket sorts)", dev)
     _say(f"pass B: {nb} buckets, {n_classified} device classifications of "
          f"<= {dev_rows} rows, {n_oversized} oversized")
 
@@ -946,18 +938,20 @@ def build_bwt_ooc(
     del sp_pos_parts
     L = sp_pos.shape[0]
     rank = _sp_ranks_host(sp6, L, ooc.sp_cap, dev, _say, mesh)
-    _mark("SP rank")
+    tracing.mark("SP rank", dev)
     _say(f"SP string: {L} events")
 
     # ---- blue fill: (block base, SP rank, position) order ----
     n_blue = blue_fill(bwt6, blue_parts, rank, sp_pos, dev)
     del blue_parts, rank
-    _mark("blue fill")
+    tracing.mark("blue fill", dev)
     _say(f"blue entries: {n_blue}")
+    tracing.count("sp_events", L)
+    tracing.count("blue_entries", n_blue)
 
     if config.check:
         check_char_counts(bwt6, coll)
-        _mark("count check (host)")
+        tracing.mark("count check (host)", dev)
     if stats is not None:
         stats.update(
             bucket_cap=cap, chunk=C, n_chunks=n_chunks, sp_len=L,
@@ -990,4 +984,5 @@ def build_bwt_ooc(
         _bwt6=bwt6,
         _n=N,
         timings=timings,
+        counters=tracing.current().counters,
     )

@@ -37,13 +37,11 @@ bases exist only in the stitch. The bound is per shard (N/n < 2^31).
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from debwt_tpu_torch import constants as K
-from debwt_tpu_torch import ops
+from debwt_tpu_torch import ops, tracing
 from debwt_tpu_torch.oocore import sample_splitters
 from debwt_tpu_torch.parallel import collectives as C
 from debwt_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -160,13 +158,13 @@ def _s0_edges(x2, dist, m: int, splitters, split_c: int):
 
 
 def _s1_nodes(mesh: Mesh, x2, dist, m: int, tailq, heads, spec, spec_char,
-              splitters, split_c: int, mark):
+              splitters, split_c: int):
     """S0, then route the edges to their owners, build the owned node
     table and the unit merge, answer each edge with its node's flags,
     and combine the tail windows' flags over the ranks."""
     n, r, k = mesh.n, mesh.rank, m - 1
     e, valid, d1, d2, w2 = _s0_edges(x2, dist, m, splitters, split_c)
-    mark("S0 edge keys")
+    tracing.mark("S0 edge keys", mesh.device)
     # ---- prefix-routed edges (the echo below answers them) ----
     (e_in,), send1, recv1, sent_pos = C.route(mesh, d1, valid, e)
     del e, d1
@@ -321,6 +319,7 @@ def _s3_assemble(node_start, unit_size, unit_char, nid, b_rank, b_char):
     return seg
 
 
+@tracing.recorded
 def dist_build_bwt(
     coll: SequenceCollection,
     config: PipelineConfig | None = None,
@@ -342,16 +341,6 @@ def dist_build_bwt(
             f"per-shard text of {Ns} chars exceeds int32; use more "
             f"devices (N/n must stay below 2^31)"
         )
-    timings: dict = {}
-    t0 = [time.perf_counter()]
-
-    def mark(label):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        timings[label] = timings.get(label, 0.0) + now - t0[0]
-        t0[0] = now
-
     sp = build_special(coll, m)
     split_c = min(16, k)
     splitters = torch.from_numpy(
@@ -366,28 +355,28 @@ def dist_build_bwt(
     heads, spec = d64(sp.head_keys), d64(sp.spec_tfill)
     spec_char = torch.from_numpy(sp.spec_bwt6).to(dev)
     x2, dist, sbm, sep_d, prev_char, prev_sep = _shard(coll, sp, mesh, m, Ns)
-    mark("host inputs")
+    tracing.mark("host inputs", dev)
 
     s1 = _s1_nodes(mesh, x2, dist, m, tailq, heads, spec, spec_char,
-                   splitters, split_c, mark)
-    mark("S1 node tables")
+                   splitters, split_c)
+    tracing.mark("S1 node tables", dev)
     word, is_sp, is_blue = _s2_classify(
         mesh, dist, sbm, sep_d, s1.pop("flags"), s1.pop("sent_pos"),
         s1.pop("tail_mi"), s1.pop("tail_ref"), Ns, k)
-    mark("S2 classification")
+    tracing.mark("S2 classification", dev)
     sp6, l_sp, L, blue = _s2b_sp_blue(
         mesh, x2, dist, word, is_sp, is_blue, prev_char, prev_sep, N, Ns, k)
     del word
     sp6_blk, Pb = _s2c_reblock(mesh, sp6, l_sp, L)
     del sp6
-    mark("S2b/c SP + blue routing")
+    tracing.mark("S2b/c SP + blue routing", dev)
     rank_blk = sp_ranks_sharded(mesh, sp6_blk, L)
     b_sidx = (blue[:, 1] >> 3).to(I32)
     b_rank = _blue_ranks(mesh, rank_blk, b_sidx, L, Pb)
-    mark("SP rank")
+    tracing.mark("SP rank", dev)
     seg = _s3_assemble(s1["node_start"], s1["unit_size"], s1["unit_char"],
                        blue[:, 0], b_rank, (blue[:, 1] & 7).to(U8))
-    mark("S3 assembly")
+    tracing.mark("S3 assembly", dev)
     if DEBUG is not None:
         host = lambda t: t.cpu().numpy()  # noqa: E731
         DEBUG.update(
@@ -410,8 +399,9 @@ def dist_build_bwt(
         want = np.bincount(coll.x6, minlength=6)
         assert (got == want).all(), (got, want)
     packed = ops.pack_2bit_words(bwt6.clamp(max=3))
-    mark("stitch")
+    tracing.mark("stitch", dev)
     return BwtResult(
         sharp_pos=sharp.astype(np.int64), dollar_pos=int(dollar[0]),
-        packed_words=packed, _bwt6=bwt6, _n=N, timings=timings,
+        packed_words=packed, _bwt6=bwt6, _n=N,
+        timings=tracing.current().timings,
     )

@@ -16,16 +16,13 @@ CPU.
 from __future__ import annotations
 
 import dataclasses
-import os
-import sys
-import time
 from typing import Any
 
 import numpy as np
 import torch
 
 from debwt_tpu_torch import constants as K
-from debwt_tpu_torch import engine, ops
+from debwt_tpu_torch import engine, ops, tracing
 from debwt_tpu_torch.special import SpecialData, _cached_buf, build_special
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 
@@ -54,8 +51,10 @@ class BwtResult:
     _bwt6: Any = None                         # np.ndarray or tensor
     _n: int = 0
     # per-stage wall seconds (the reference prints these on every run,
-    # src/main.c:86-170; the CLI --timings flag surfaces them)
+    # src/main.c:86-170; the CLI --timings flag surfaces them) and the
+    # build's counts (tracing.py): both dicts, packed() adds to them
     timings: Any = None
+    counters: Any = None
 
     @property
     def bwt6(self) -> np.ndarray:
@@ -73,19 +72,28 @@ class BwtResult:
 
     def packed(self) -> bytes:
         """The reference's on-disk layout: little-endian u64 words, 32
-        bases/word, first base in bits 63:62."""
-        if self.packed_words is not None:
-            w = self.packed_words.cpu().numpy().view(np.uint32)
-            n_words = (self._n + 31) // 32
-            if w.shape[0] % 2:
-                w = np.concatenate([w, np.zeros(1, np.uint32)])
-            u64 = (w[0::2].astype(np.uint64) << np.uint64(32)) | w[
-                1::2
-            ].astype(np.uint64)
-            return u64[:n_words].astype("<u8").tobytes()
-        from debwt_tpu_torch.golden import pack_2bit_u64
+        bases/word, first base in bits 63:62. Its seconds go to
+        timings["packed"], its fetch to counters."""
+        for field in ("timings", "counters"):
+            if getattr(self, field) is None:
+                object.__setattr__(self, field, {})
+        with tracing.recording(self.timings, self.counters), \
+                tracing.span("pack", "packed"):
+            if self.packed_words is not None:
+                words = tracing.wait("pack", self.packed_words.cpu)
+                with tracing.span("pack.assemble"):
+                    w = words.numpy().view(np.uint32)
+                    n_words = (self._n + 31) // 32
+                    if w.shape[0] % 2:
+                        w = np.concatenate([w, np.zeros(1, np.uint32)])
+                    u64 = (w[0::2].astype(np.uint64) << np.uint64(32)) | w[
+                        1::2
+                    ].astype(np.uint64)
+                    return u64[:n_words].astype("<u8").tobytes()
+            with tracing.span("pack.assemble"):
+                from debwt_tpu_torch.golden import pack_2bit_u64
 
-        return pack_2bit_u64(self.bwt6)
+                return pack_2bit_u64(self.bwt6)
 
 
 def _pow2(x: int) -> int:
@@ -151,6 +159,7 @@ def stage_inputs(
     )
 
 
+@tracing.recorded
 def build_bwt(
     coll: SequenceCollection,
     config: PipelineConfig | None = None,
@@ -158,18 +167,6 @@ def build_bwt(
 ) -> BwtResult:
     config = config or PipelineConfig()
     dev = resolve_device(device)
-    trace = os.environ.get("DEBWT_TRACE") == "1"
-    timings: dict[str, float] = {}
-
-    def _t(label, t0):
-        dt = time.perf_counter() - t0
-        timings[label] = timings.get(label, 0.0) + dt
-        if trace:
-            print(f"[debwt-torch trace] {label:24s} {dt:8.3f}s",
-                  file=sys.stderr)
-        return time.perf_counter()
-
-    t0 = time.perf_counter()
     m = config.m
     N = coll.bwt_len
     n = coll.n_reads
@@ -181,48 +178,57 @@ def build_bwt(
         )
 
     # ---- host: special module (tiny, irregular) ----
-    sp = build_special(coll, m)
-    t0 = _t("special module (host)", t0)
-    inp = stage_inputs(coll, m, sp)
+    with tracing.span("special", "special module (host)"):
+        sp = build_special(coll, m)
+    with tracing.span("graph", "stage_graph (+h2d, sync)"):
+        with tracing.span("graph.inputs"):
+            inp = stage_inputs(coll, m, sp)
+        with tracing.span("graph.h2d"):
+            host = (inp.x2w.view(np.int32), inp.sep_pos, inp.spec_key,
+                    inp.spec_char6, inp.spec_branch)
+            tracing.count("h2d_bytes", sum(a.nbytes for a in host))
+            x2w_d, sep_d, key_d, char_d, spec_branch_d = (
+                torch.from_numpy(a).to(dev) for a in host)
+        with tracing.span("graph.enqueue"):
+            out = engine.stage_graph(
+                x2w_d, sep_d, key_d, char_d, spec_branch_d, N, m, inp.N_cap,
+            )
+        (bwt6_partial, ev_key, mi_row, seg_start, r_pos,
+         bwt_char, L, B, x2p_d) = out
+        # the one mid-build sync
+        L, B = tracing.wait("graph", lambda: torch.stack([L, B]).tolist())
+    tracing.count("rows", inp.N_cap + inp.spec_key.shape[0])
+    tracing.count("sp_events", L)
+    tracing.count("blue_entries", B)
 
-    def d(a):
-        return torch.from_numpy(a).to(dev)
-
-    spec_branch_d = d(inp.spec_branch)
-    out = engine.stage_graph(
-        d(inp.x2w.view(np.int32)), d(inp.sep_pos), d(inp.spec_key),
-        d(inp.spec_char6), spec_branch_d, N, m, inp.N_cap,
-    )
-    (bwt6_partial, ev_key, mi_row, seg_start, r_pos,
-     bwt_char, L, B, x2p_d) = out
-    L, B = torch.stack([L, B]).tolist()       # the one mid-build sync
-    t0 = _t("stage_graph (+h2d, sync)", t0)
-    # eighth-power buckets (like N_cap), not powers of two, to keep the
-    # L-sized rank-loop sorts from padding by up to 2x
-    L_cap, B_cap = _bucket(L), _bucket(B)
-
-    bwt6_d, packed_d, sharp_d, dollar_d, n_sharp_d, counts_d = (
-        engine.stage_finish(
-            x2p_d, ev_key, mi_row, seg_start, r_pos, bwt_char,
-            bwt6_partial, spec_branch_d, N,
-            m, inp.N_cap, L_cap, B_cap, _pow2(n),
+    with tracing.span("finish", "stage_finish (+sync)"):
+        # eighth-power buckets (like N_cap), not powers of two, to keep
+        # the L-sized rank-loop sorts from padding by up to 2x
+        L_cap, B_cap = _bucket(L), _bucket(B)
+        bwt6_d, packed_d, sharp_d, dollar_d, n_sharp_d, counts_d = (
+            engine.stage_finish(
+                x2p_d, ev_key, mi_row, seg_start, r_pos, bwt_char,
+                bwt6_partial, spec_branch_d, N,
+                m, inp.N_cap, L_cap, B_cap, _pow2(n),
+            )
         )
-    )
-    sharp = sharp_d.cpu().numpy().astype(np.int64)
-    dollar, n_sharp = torch.stack([dollar_d, n_sharp_d]).tolist()
-    t0 = _t("stage_finish (+sync)", t0)
+        sharp = tracing.wait("finish", sharp_d.cpu).numpy().astype(np.int64)
+        dollar, n_sharp = tracing.wait(
+            "finish", lambda: torch.stack([dollar_d, n_sharp_d]).tolist())
     assert n_sharp == n - 1, (n_sharp, n)
     assert (sharp[: n - 1] < N).all()
     assert dollar < N
     if config.check:
-        counts = counts_d.cpu().numpy()
+        counts = tracing.wait("check", counts_d.cpu).numpy()
         want = np.bincount(coll.x6, minlength=6)
         assert (counts == want).all(), (counts, want)
+    rec = tracing.current()
     return BwtResult(
         sharp_pos=sharp[: n - 1],
         dollar_pos=dollar,
         packed_words=packed_d,
         _bwt6=bwt6_d,
         _n=N,
-        timings=timings,
+        timings=rec.timings,
+        counters=rec.counters,
     )
