@@ -439,11 +439,17 @@ def phase_kernels(dev, rows: dict):
         grouped_shapes=[dict(
             shape=f"packed words from x2w[1:], n_out {SEL_C}, w {w}",
             ms=ms_sel, plain_ms=plain_sel, bound_ms=b_sel, bound_by=b_sel_by)],
+        # the fused engine's call: its T-padded uint8 codes, already on
+        # the card, through the byte entry
+        fused_shape=dict(
+            shape=f"uint8 codes x2p[:N + w - 1], n_out {n_out}, w {w}",
+            ms=ms_u8, plain_ms=plain_u8, bound_ms=b_u8, bound_by=b_u8_by),
     )
     say(f"[kernels] window_keys packed loader on the word slice x2w[1:] "
         f"n_out={SEL_C} w={w}: {ms_sel:.4f} ms (bound {b_sel:.4f} ms by "
         f"{b_sel_by}, plain {plain_sel:.4f} ms)")
-    say(f"[kernels] window_keys uint8 loader n_out={n_out} w={w}: "
+    say(f"[kernels] window_keys uint8 loader (the fused engine's entry) "
+        f"n_out={n_out} w={w}: "
         f"{ms_u8:.4f} ms, on x[1:] {ms_u8_off:.4f} ms "
         f"(bound {b_u8:.4f} ms by {b_u8_by}, plain {plain_u8:.4f} ms)")
     say(f"[kernels] window_keys packed loader n_out={n_out} w={w}: "

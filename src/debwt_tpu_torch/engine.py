@@ -12,9 +12,12 @@ stage_finish, sized by them, ranks the SP string by prefix tripling and
 scatters the blue chars.
 
 Arguments and outputs follow the JAX engine so that both can be fed the
-same padded inputs, with two changes of representation: window keys are
-int64 (one word instead of a (hi, lo) uint32 pair), and the SP event
-keys are int64 (r_pos << 3 | char overflows int32 at r_pos >= 2^28).
+same padded inputs, with three changes of representation: the text is
+its T-padded uint8 codes (the x2p that the JAX engine first unpacks
+from 2-bit words: stage_finish keeps the codes anyway, so nothing packs
+them); window keys are int64 (one word instead of a (hi, lo) uint32
+pair); and the SP event keys are int64 (r_pos << 3 | char overflows
+int32 at r_pos >= 2^28).
 The third sort operand still packs (class, position) into one int32:
 
     main row:    pos - 2^29          (negative; ascending position)
@@ -32,7 +35,6 @@ from debwt_tpu_torch.kernels.seg_or import seg_scan_or, seg_suffix_or
 I32 = torch.int32
 I64 = torch.int64
 U8 = torch.uint8
-TAIL_PAD = 32     # == constants.TAIL_PAD (reference: src/collect#$.c:87-90)
 BIG = 1 << 29     # class encoding split point (R < 2^29 rows)
 POS_STOP = 1 << 29  # stop bit for position-valued OR-carry scans
 SENT = 0xFFFFFFFF   # SP event sentinel: sorts last, SENT >> 3 = 2^29 - 1
@@ -128,7 +130,8 @@ def fill_chars(is_spec, spec_char_row, mi_row, pred_single_row):
 
 
 def stage_graph(
-    x2w,              # int32[(N+pad)/16] packed 2-bit codes (seps as T)
+    x2p,              # uint8[N + constants.TAIL_PAD] codes (seps as
+                      # T), T from n_real on
     sep_pos,          # int32[n_cap] separator positions (pad: >= N)
     spec_key,         # int64[n_spec_cap] T-filled special keys, true
                       # order; padding rows carry -1 (all ones)
@@ -138,9 +141,8 @@ def stage_graph(
     m: int,
     N: int,
 ):
-    dev = x2w.device
+    dev = x2p.device
     k = m - 1
-    x2p = ops.unpack_2bit_words(x2w, N + TAIL_PAD)
     is_sep = torch.zeros(N + 1, dtype=torch.bool, device=dev)
     is_sep[sep_pos.clamp(max=N).to(I64)] = True
     is_sep = is_sep[:N]
@@ -167,7 +169,7 @@ def stage_graph(
     # groups by node AND by real choice char for free. Keys are flipped
     # into signed order; only equality and the low 2 bits are read
     # after the sort, so they stay flipped.
-    wkey = ops.window_keys_packed(x2w, m, N)
+    wkey = ops.window_keys(x2p[: N + m - 1], m)
     r_key = torch.cat([
         torch.where(is_main, wkey, -1),
         (spec_key << 2) | 3,           # spec62<<2 | T-fill; pads stay -1

@@ -12,15 +12,16 @@ pair, (hi << 32) | lo; at w = 32 the top bit may be set, so the int64
 reads negative.
 
 Two entries, one kernel body (`csrc/window_keys.cu`): `window_keys`
-takes uint8 codes, one a byte (any slice of a tensor), and
-`window_keys_packed` takes the 2-bit packed int32 words of
-`ops.pack_2bit_words_host` (16 codes a word, first code in bits 31:30),
-which is what the engine holds. On a CUDA tensor each launches the
-hand-written kernel, which stages packed words in shared memory and
-builds a key from three of them with two funnel shifts (bound by the
-bytes of the keys it writes). On a CPU tensor each runs its plain
-version: `window_keys_plain`, the log-doubling of the JAX package's
-ops.window_keys on int64, behind an unpack for the packed entry.
+takes uint8 codes, one a byte (any slice of a tensor: the fused
+engine's codes), and `window_keys_packed` takes the 2-bit packed int32
+words of `ops.pack_2bit_words_host` (16 codes a word, first code in
+bits 31:30: what the grouped and out-of-core tiers hold). On a CUDA
+tensor each launches the hand-written kernel, which stages packed words
+in shared memory and builds a key from three of them with two funnel
+shifts (bound by the bytes of the keys it writes). On a CPU tensor
+each runs its plain version: `window_keys_plain`, the log-doubling of
+the JAX package's ops.window_keys on int64, behind an unpack for the
+packed entry.
 `window_keys_words_replay` is the kernel's own index arithmetic in
 torch, tested where the kernel cannot run. Both entries count their
 launches in `window_keys.launches`.

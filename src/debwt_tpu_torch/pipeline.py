@@ -22,8 +22,8 @@ import numpy as np
 import torch
 
 from debwt_tpu_torch import constants as K
-from debwt_tpu_torch import engine, ops, tracing
-from debwt_tpu_torch.special import SpecialData, _cached_buf, build_special
+from debwt_tpu_torch import engine, tracing
+from debwt_tpu_torch.special import SpecialData, build_special
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 
 # fused-engine row bound (engine.stage_graph packs class and position
@@ -117,9 +117,9 @@ def rows_needed(coll: SequenceCollection, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class StageInputs:
-    """The padded host inputs of engine.stage_graph (numpy)."""
+    """The small padded host inputs of engine.stage_graph (numpy); the
+    text itself goes to the device as it is (build_bwt)."""
 
-    x2w: np.ndarray          # uint32 packed text words, T-padded
     sep_pos: np.ndarray      # int32[_pow2(n)], pad N_cap
     spec_key: np.ndarray     # int64[ns_cap] T-filled keys, pad -1
     spec_char6: np.ndarray   # uint8[ns_cap], pad 0
@@ -140,13 +140,8 @@ def stage_inputs(
     sp = sp if sp is not None else build_special(coll, m)
     N = coll.bwt_len
     N_cap = _bucket(N)
-    x2p = _cached_buf("pipe_x2p", N_cap + K.TAIL_PAD)
-    x2p[:N] = coll.x2
-    x2p[N:] = K.T
     spec_key = sp.spec_tfill.view(np.int64)
     return StageInputs(
-        # 2-bit packed text: 4x less host->device traffic
-        x2w=ops.pack_2bit_words_host(x2p),
         sep_pos=_padded(coll.sep.astype(np.int32), _pow2(coll.n_reads), N_cap),
         spec_key=_padded(spec_key, _pow2(spec_key.shape[0]), -1),
         spec_char6=_padded(sp.spec_bwt6, _pow2(spec_key.shape[0]), 0),
@@ -184,14 +179,21 @@ def build_bwt(
         with tracing.span("graph.inputs"):
             inp = stage_inputs(coll, m, sp)
         with tracing.span("graph.h2d"):
-            host = (inp.x2w.view(np.int32), inp.sep_pos, inp.spec_key,
-                    inp.spec_char6, inp.spec_branch)
-            tracing.count("h2d_bytes", sum(a.nbytes for a in host))
-            x2w_d, sep_d, key_d, char_d, spec_branch_d = (
-                torch.from_numpy(a).to(dev) for a in host)
+            # the text crosses once, as its codes, straight into the
+            # T-padded device buffer the engine keeps: no host staging
+            # copy, and the tail is filled on the device
+            x2p_d = torch.empty(inp.N_cap + K.TAIL_PAD, dtype=torch.uint8,
+                                device=dev)
+            x2p_d[:N].copy_(torch.from_numpy(coll.x2))
+            x2p_d[N:].fill_(K.T)
+            small = (inp.sep_pos, inp.spec_key, inp.spec_char6,
+                     inp.spec_branch)
+            tracing.count("h2d_bytes", N + sum(a.nbytes for a in small))
+            sep_d, key_d, char_d, spec_branch_d = (
+                torch.from_numpy(a).to(dev) for a in small)
         with tracing.span("graph.enqueue"):
             out = engine.stage_graph(
-                x2w_d, sep_d, key_d, char_d, spec_branch_d, N, m, inp.N_cap,
+                x2p_d, sep_d, key_d, char_d, spec_branch_d, N, m, inp.N_cap,
             )
         (bwt6_partial, ev_key, mi_row, seg_start, r_pos,
          bwt_char, L, B, x2p_d) = out

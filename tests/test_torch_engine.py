@@ -8,10 +8,14 @@ import pytest
 import torch
 
 from debwt_tpu import engine as jengine
+from debwt_tpu_torch import constants as K
 from debwt_tpu_torch import engine as tengine
-from debwt_tpu_torch.ops import keys_from_pair, pair_from_keys
-from debwt_tpu_torch.pipeline import _bucket, _pow2, stage_inputs
-from debwt_tpu_torch.types import SequenceCollection
+from debwt_tpu_torch import ops
+from debwt_tpu_torch.ops import (
+    keys_from_pair, pack_2bit_words_host, pair_from_keys,
+)
+from debwt_tpu_torch.pipeline import _bucket, _pow2, build_bwt, stage_inputs
+from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 
 GRAPH_OUT = ("bwt6_partial", "ev_key", "mi_row", "seg_start", "r_pos",
              "bwt_char", "L", "B", "x2p")
@@ -28,16 +32,26 @@ def coll():
     return SequenceCollection.from_reads(reads)
 
 
+def _x2p(coll, N_cap):
+    """The T-padded codes pipeline.build_bwt puts on the device."""
+    x2p = np.full(N_cap + K.TAIL_PAD, K.T, dtype=np.uint8)
+    x2p[: coll.bwt_len] = coll.x2
+    return x2p
+
+
 def _graphs(coll, m):
+    """The port's stage_graph fed the T-padded codes, the JAX one the
+    same codes as 2-bit words."""
     inp = stage_inputs(coll, m)
+    x2p = _x2p(coll, inp.N_cap)
     s_hi, s_lo = pair_from_keys(inp.spec_key)
     j = jengine.stage_graph(
-        jnp.asarray(inp.x2w), jnp.asarray(inp.sep_pos), jnp.asarray(s_hi),
-        jnp.asarray(s_lo), jnp.asarray(inp.spec_char6),
+        jnp.asarray(pack_2bit_words_host(x2p)), jnp.asarray(inp.sep_pos),
+        jnp.asarray(s_hi), jnp.asarray(s_lo), jnp.asarray(inp.spec_char6),
         jnp.asarray(inp.spec_branch), jnp.int32(inp.n_real), m, inp.N_cap,
     )
     t = tengine.stage_graph(
-        torch.from_numpy(inp.x2w.view(np.int32)),
+        torch.from_numpy(x2p),
         torch.from_numpy(inp.sep_pos), torch.from_numpy(inp.spec_key),
         torch.from_numpy(inp.spec_char6), torch.from_numpy(inp.spec_branch),
         inp.n_real, m, inp.N_cap,
@@ -110,3 +124,28 @@ def test_spec_keys_convert(coll):
     pad = inp.spec_key == -1
     assert pad.any()
     assert (hi[pad] == 0xFFFFFFFF).all() and (lo[pad] == 0xFFFFFFFF).all()
+
+
+@pytest.mark.parametrize("m", [12, 24, 32])
+@pytest.mark.parametrize("n_reads,length", [(1, 37), (3, 50), (5, 101)])
+def test_byte_entry_equals_packed_entry(m, n_reads, length):
+    """stage_graph's keys from the uint8 codes equal kernel 1's packed
+    entry on pack_2bit_words_host of the same codes, at text lengths
+    that are not multiples of 16; and build_bwt uploads the codes once,
+    N bytes, beside the four small arrays."""
+    rng = np.random.default_rng(m * 100 + length)
+    reads = ["".join(rng.choice(list("ACGT"), size=length))
+             for _ in range(n_reads)]
+    coll = SequenceCollection.from_reads(reads)
+    assert coll.bwt_len % 16
+    inp = stage_inputs(coll, m)
+    x2p = _x2p(coll, inp.N_cap)
+    got = ops.window_keys(torch.from_numpy(x2p[: inp.N_cap + m - 1]), m)
+    want = ops.window_keys_packed(
+        torch.from_numpy(pack_2bit_words_host(x2p).view(np.int32)), m,
+        inp.N_cap)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    r = build_bwt(coll, PipelineConfig(m=m), device="cpu")
+    small = (inp.sep_pos, inp.spec_key, inp.spec_char6, inp.spec_branch)
+    assert r.counters["h2d_bytes"] == coll.bwt_len + sum(
+        a.nbytes for a in small)

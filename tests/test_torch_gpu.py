@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from debwt_tpu_torch import api, count_kmers
+from debwt_tpu_torch import api, count_kmers, ops
 from debwt_tpu_torch import grouped as grouped_mod
 from debwt_tpu_torch.golden import golden_bwt
 from debwt_tpu_torch.grouped import GroupedConfig, build_bwt_grouped
@@ -182,6 +182,40 @@ def test_build_bwt_on_card_matches_golden(cuda, m):
     assert r.packed() == g.packed()
     np.testing.assert_array_equal(r.sharp_pos, g.sharp_pos)
     assert r.dollar_pos == g.dollar_pos
+
+
+def test_fused_build_reads_the_device_codes_once(cuda, monkeypatch):
+    """A fused api.build launches kernel 1 once, through its byte entry,
+    on the device codes the engine keeps (16-byte aligned, so the
+    loader's vector path is the one taken), never through the packed
+    entry; its bytes and sidecars are the CPU build's."""
+    rng = np.random.default_rng(16)
+    frags = ["".join(rng.choice(list("ACGT"), size=300)) for _ in range(6)]
+    reads = ["".join(rng.choice(frags) for _ in range(4)) + "".join(
+        rng.choice(list("ACGT"), size=int(rng.integers(1, 50))))
+        for _ in range(40)]
+    coll = SequenceCollection.from_reads(reads)
+    seen = []
+
+    def byte_entry(x2, w, n_out):
+        seen.append((x2.device.type, x2.dtype, x2.data_ptr() % 16,
+                     x2.shape[0], n_out))
+        return wk.window_keys(x2, w, n_out)
+
+    def packed_entry(*args):
+        raise AssertionError("the fused build read packed words")
+
+    monkeypatch.setattr(ops, "_window_keys", byte_entry)
+    monkeypatch.setattr(ops, "_window_keys_packed", packed_entry)
+    before = wk.window_keys.launches
+    r = api.build(coll, PipelineConfig(m=32), device=cuda)
+    assert wk.window_keys.launches == before + 1
+    N_cap = _bucket(coll.bwt_len)
+    assert seen == [("cuda", torch.uint8, 0, N_cap + 31, N_cap)]
+    want = api.build(coll, PipelineConfig(m=32), device="cpu")
+    assert r.packed() == want.packed()
+    np.testing.assert_array_equal(r.sharp_pos, want.sharp_pos)
+    assert r.dollar_pos == want.dollar_pos
 
 
 def _repeat_reads(seed, n_reads=12):

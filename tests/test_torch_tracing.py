@@ -12,7 +12,7 @@ from debwt_tpu_torch import api, tracing
 from debwt_tpu_torch.cli import main as torch_main
 from debwt_tpu_torch.grouped import GroupedConfig, build_bwt_grouped
 from debwt_tpu_torch.oocore import OocConfig, build_bwt_ooc
-from debwt_tpu_torch.pipeline import build_bwt
+from debwt_tpu_torch.pipeline import build_bwt, stage_inputs
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 
 CPU = torch.device("cpu")
@@ -105,8 +105,12 @@ def test_timings_labels_and_counters(fused_traced):
     # graph L/B, L_dyn, sharp, dollar/n_sharp, the pack fetch
     assert c["syncs"] == 5 + c["rank_rounds"] and c["rank_rounds"] >= 1
     assert c["rows"] >= coll.bwt_len
+    # the text's codes, once, and the four small padded arrays
+    inp = stage_inputs(coll, 32)
+    assert c["h2d_bytes"] == coll.bwt_len + sum(
+        a.nbytes for a in (inp.sep_pos, inp.spec_key, inp.spec_char6,
+                           inp.spec_branch))
     n_words = -(-coll.bwt_len // 16)
-    assert c["h2d_bytes"] >= n_words * 4
     # the packed words and the '#' rows
     assert c["d2h_bytes"] >= n_words * 4 + 8 * (coll.n_reads - 1)
     assert c["sp_events"] > 0 and c["blue_entries"] > 0
