@@ -22,11 +22,21 @@ host:
     then runs on the group's rows. Groups are processed in ascending
     key order, so the sorted row index plus the running base IS the
     global BWT coordinate;
-  * only outputs cross to the host: 2-bit packed fill characters, SP
-    event positions and blue entries (branch events only — tiny next
-    to the text). SP ranking and the blue fill are the out-of-core
-    tier's back half (oocore.sp_string, oocore._sp_ranks_host,
-    oocore.blue_fill).
+  * each group's 2-bit fill characters stay on the device, in one
+    buffer of N / 4 bytes allocated before the passes (so that every
+    group's transients fit where the last group's were); its SP event
+    positions and blue entries (branch events only — tiny next to the
+    text) are compacted there and fetched. The back half is the
+    out-of-core tier's on the device: its SP string (_sp_string, from
+    the packed text), oocore.sp_ranks and oocore.blue_order; the BWT,
+    its '#'/'$' sidecars and packed words are made there, as the fused
+    engine makes them, so that only the words and the sidecars cross
+    back.
+
+The text crosses once, as its uint8 codes, and is packed on the
+device (ops.pack_text). Stages are tracing.py spans (grouped.special, .text, .groups
+with .select / .classify / .rows a group, .sp, .fill); the host blocks
+on the device only in tracing.wait.
 
 Representation, against the JAX module's (hi, lo) uint32 pairs and
 uint32 positions (torch has no uint32 arithmetic on the CPU):
@@ -54,18 +64,16 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
-import time
 
 import numpy as np
 import torch
 
 from debwt_tpu_torch import constants as K
 from debwt_tpu_torch import engine, ops, tracing
-from debwt_tpu_torch.golden import _UNPACK4   # fill2 byte -> 4 chars
 from debwt_tpu_torch.kernels.seg_or import seg_scan_or
 from debwt_tpu_torch.kernels.window_keys import window_keys as _wk_counter
 from debwt_tpu_torch.pipeline import BwtResult, _bucket, _pow2, resolve_device
-from debwt_tpu_torch.special import _cached_buf, build_special
+from debwt_tpu_torch.special import build_special
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 
 I32 = torch.int32
@@ -89,12 +97,15 @@ MAX_N = ORD_SPEC
 SCAN_ROWS = 1 << 29
 
 # Device bytes the default cap is sized by on a CUDA device, both read
-# by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W (see PERF.md):
-# the caching allocator's reserved peak of a whole build over the rows
-# of its largest group (R = cap_run + ns_cap) was 129.65 at R =
-# 41,943,104 (140 Mbp in 4 groups), 105.77 at R = 402,653,248 (600 Mbp
-# in 2 groups) and 101.68 at R = 536,870,908, the scan bound (3 Gbp in
-# 7 groups); the largest, rounded up. A text position of one
+# on an NVIDIA H100 80GB HBM3 at 700 W (see PERF.md): the caching
+# allocator's reserved peak of a whole build through api.build with the
+# check on, over the rows of its largest group (R = cap_run + ns_cap),
+# was 129.65 at R = 41,943,104 (140 Mbp in 4 groups, with the text and
+# the BWT on the host), and with the fills, BWT and pack on the card
+# 106.52 at R = 402,653,312 (600 Mbp in 2 groups) and 103.38 at R =
+# 536,870,908, the scan bound (3 Gbp in 7 groups); the largest, rounded
+# up. What stays resident through the passes, N / 2 bytes, is budgeted
+# apart (default_cap). A text position of one
 # selection chunk costs the chunk's transients (keys, node keys, scan
 # words, masks, the compaction's indices): 40.1 bytes at a chunk of
 # 2^27 (the allocator's peak when the first selection ended, less the
@@ -134,13 +145,15 @@ class GroupedConfig:
 def default_cap(dev: torch.device, n: int, chunk: int) -> int:
     """Rows a group may hold on `dev` for a text of n positions scanned
     in chunks of `chunk`: under the scan bound, and on a CUDA device
-    what the free memory holds beside the resident packed text and one
-    chunk's selection transients. The CPU is bound by the scans alone."""
+    what the free memory holds beside what stays resident through the
+    passes (the packed text and the groups' 2-bit fills, n / 4 bytes
+    each) and one chunk's selection transients. The CPU is bound by the
+    scans alone."""
     cap = SCAN_ROWS - 4
     if dev.type == "cuda":
         from debwt_tpu_torch.api import _device_memory_bytes
 
-        free = _device_memory_bytes(dev) - n // 4 - chunk * _SELECT_BYTES_PER_POS
+        free = _device_memory_bytes(dev) - n // 2 - chunk * _SELECT_BYTES_PER_POS
         cap = min(cap, free // _GROUP_BYTES_PER_ROW)
         if cap < 1024:
             raise RuntimeError(
@@ -172,11 +185,23 @@ def sample_splitters64(x2: np.ndarray, n: int, k: int, seed: int = 17,
     return v[qs]
 
 
-def _chunk_rows(x2w_ext, sep: np.ndarray, n_real: int, ci: int,
-                m: int, C: int, E: int):
+def _chunk_seps(sep: np.ndarray, dev, C: int, n_chunks: int, k: int):
+    """The separator positions (host int64, ascending) on `dev`, and
+    for each text chunk the view of them that _chunk_rows reads: those
+    in [c0 - 1, c0 + C + k + 1), c0 the chunk's first position."""
+    sep_d = torch.from_numpy(sep).to(dev)
+    c0 = np.arange(n_chunks, dtype=np.int64) * C
+    a = np.searchsorted(sep, c0 - 1).tolist()
+    b = np.searchsorted(sep, c0 + C + k + 1).tolist()
+    return sep_d, [sep_d[i:j] for i, j in zip(a, b)]
+
+
+def _chunk_rows(x2w_ext, seps, n_real: int, ci: int, m: int, C: int,
+                E: int):
     """The rows of text chunk ci, re-derived from the packed text:
     (wkey int64[C], is_main bool[C], f8 uint8[C]); the row at index i
-    is text position ci * C + i. One launch of each kernel."""
+    is text position ci * C + i. One launch of each kernel. seps: the
+    chunk's separators on the device (_chunk_seps)."""
     dev = x2w_ext.device
     k = m - 1
     c0 = ci * C
@@ -190,8 +215,7 @@ def _chunk_rows(x2w_ext, sep: np.ndarray, n_real: int, ci: int,
     )[15 : 15 + C]
     # chunk-local separator mask over [c0-1, c0+C+k]
     SE = C + k + 2
-    a, b = np.searchsorted(sep, [c0 - 1, c0 - 1 + SE])
-    loc = torch.from_numpy(sep[a:b] - (c0 - 1)).to(dev)
+    loc = seps - (c0 - 1)
     is_sep_ext = torch.zeros(SE, dtype=torch.bool, device=dev)
     is_sep_ext[loc] = True
     idx = torch.arange(SE, dtype=I32, device=dev)
@@ -212,32 +236,37 @@ def _chunk_rows(x2w_ext, sep: np.ndarray, n_real: int, ci: int,
 
 def _select_group(
     x2w_ext,      # int32[W] packed codes of [16 T's] + text + T padding
-    sep,          # host int64[n_reads] separator positions, ascending
+    seps,         # per chunk, its separators on the device (_chunk_seps)
     n_real: int,  # true text length N
     g_lo: int,    # 62-bit group range lower bound (inclusive)
     g_hi: int,    # exclusive upper bound
     g_last: bool,  # last group (upper bound open)
-    m: int, C: int, cap: int, n_chunks: int, E: int,
+    m: int, C: int, cap: int, E: int,
 ):
     """Scan all text chunks; copy the main rows whose node keys fall in
     this group's range into a cap-row buffer. Returns
     (key, ord, f8, n_rows); rows from n_rows on are pads (key all ones,
     ord PAD_ORD, f8 0). Rows stand in text order. When n_rows > cap the
     group has overflowed: the buffer holds only the chunks that fitted
-    whole, and n_rows is still the group's full count."""
+    whole, and n_rows is still the group's full count. Each chunk's
+    row count is one tracing.wait (grouped.select.wait)."""
     dev = x2w_ext.device
     bkey = torch.full((cap,), -1, dtype=I64, device=dev)
     bord = torch.full((cap,), PAD_ORD, dtype=I32, device=dev)
     bf8 = torch.zeros(cap, dtype=U8, device=dev)
     off = 0
-    for ci in range(n_chunks):
-        wkey, is_main, f8 = _chunk_rows(x2w_ext, sep, n_real, ci, m, C, E)
+    for ci, chunk_seps in enumerate(seps):
+        wkey, is_main, f8 = _chunk_rows(x2w_ext, chunk_seps, n_real, ci,
+                                        m, C, E)
         node = (wkey >> 2) & MASK62
         in_g = is_main & (node >= g_lo)
         if not g_last:
             in_g &= node < g_hi
         del node, is_main
-        rows = torch.nonzero(in_g).squeeze(1)     # syncs: the count
+        # the count blocks; the rows themselves stay on the device (a
+        # tuple, so that wait counts no bytes fetched)
+        (rows,) = tracing.wait(
+            "grouped.select", lambda: (torch.nonzero(in_g).squeeze(1),))
         cnt = rows.shape[0]
         if off + cnt <= cap:
             bkey[off : off + cnt] = wkey[rows]
@@ -247,28 +276,28 @@ def _select_group(
     return bkey, bord, bf8, off
 
 
-def _classify_group(
+def _classify_rows(
     bkey, bord, bf8,            # cap-row select buffers
     s_key, s_ord, s_c6,         # int64/int32/uint8[ns_cap] special rows
     m: int, cap: int, ns_cap: int,
 ):
     """The engine's one-sort classification on one group's rows
     (engine.stage_graph semantics; reference mergeKmer
-    src/INandOut.c:252-445). Group-local row indices stay int32.
+    src/INandOut.c:252-445), enqueued without a sync. Group-local row
+    indices stay int32.
 
-    Returns (fill2, b_key, b_sgc, b_pos, n_g, E_g):
+    Returns (fill2, rows, n_valid):
       fill2   uint8[(cap+ns_cap)/4] 2-bit-packed partial BWT chars of
-              the first n_g sorted rows (blue slots zero; fills are
-              provably in 0..3 — see the pack comment below)
-      b_key   int64[E_g] local idx<<2 | flags of the branch-event rows,
-              ascending (flag 1 = SP event, 2 = blue)
-      b_sgc   int64[E_g] blue (segment start << 3) | BWT char, else 0
-      b_pos   int64[E_g] the rows' text positions
+              the sorted rows, 4 a byte, the first in bits 7:6 (blue
+              slots and pad rows zero; fills are provably in 0..3 — see
+              the pack comment below)
+      rows    what _event_rows compacts: (mo_row, mi_row, r_ord, r_pred,
+              seg_start) over the sorted rows
+      n_valid the number of valid rows (a 0-d tensor)
     """
     R = cap + ns_cap
     assert R < SCAN_ROWS, R           # packed fact-broadcast bound
     assert R % 4 == 0, R              # 2-bit fill packing
-    dev = bkey.device
     r_key, r_ord, r_f8 = ops.msort(
         (
             torch.cat([bkey[:cap], s_key]) ^ ops.SIGN,
@@ -298,17 +327,34 @@ def _classify_group(
     fill6 = engine.fill_chars(
         is_spec, spec_char_row, mi_row, pred_single_row
     ).masked_fill(~row_valid, 0)
-    n_g = int(row_valid.sum())
+    n_valid = row_valid.sum()
     del is_spec, spec_char_row, pred_single_row, row_valid, r_f8
 
-    # SP events (multi-out rows: the reference emits the char k ahead
-    # per multi-out position, src/generateSP.c:626-651 — here that's
-    # just the row position; the host recomputes the char) and blue
-    # entries (multi-in rows) are compacted together by one mask: flags
-    # ride the key's low bits and (seg_start, char) pack into one word
-    # (seg_start < 2^29, char 3 bits).
-    ev = torch.nonzero(mo_row | mi_row).squeeze(1)    # syncs: E_g
-    E_g = ev.shape[0]
+    # fills are provably in 0..3 here: spec chars are x6[p-1] with p-1
+    # never a separator (reads longer than k, special.py), case-2
+    # chars are single predecessor bases, and every '#'/'$' BWT char
+    # belongs to a multi-in (blue) slot — head rows force mi_seg — so
+    # those arrive via the blue fill. 2-bit pack: 4 chars/byte.
+    q = fill6.view(R // 4, 4)
+    fill2 = (q[:, 0] << 6) | (q[:, 1] << 4) | (q[:, 2] << 2) | q[:, 3]
+    return fill2, (mo_row, mi_row, r_ord, r_pred, seg_start), n_valid
+
+
+def _event_rows(mo_row, mi_row, r_ord, r_pred, seg_start):
+    """The branch-event rows of a classified group, compacted (the count
+    syncs). Returns (b_key, b_sgc, b_pos):
+      b_key   int64[E_g] local idx<<2 | flags of the branch-event rows,
+              ascending (flag 1 = SP event, 2 = blue)
+      b_sgc   int64[E_g] blue (segment start << 3) | BWT char, else 0
+      b_pos   int64[E_g] the rows' text positions
+
+    SP events (multi-out rows: the reference emits the char k ahead
+    per multi-out position, src/generateSP.c:626-651 — here that's
+    just the row position; _sp_string recomputes the char) and blue
+    entries (multi-in rows) are compacted together by one mask: flags
+    ride the key's low bits and (seg_start, char) pack into one word
+    (seg_start < 2^29, char 3 bits)."""
+    ev = torch.nonzero(mo_row | mi_row).squeeze(1)
     mi_ev = mi_row[ev]
     b_key = (ev << 2) | mo_row[ev].to(I64) | (mi_ev.to(I64) << 1)
     ord_ev = r_ord[ev]
@@ -320,15 +366,41 @@ def _classify_group(
     )
     b_sgc = torch.where(mi_ev, (seg_start[ev].to(I64) << 3) | bchar, 0)
     b_pos = ord_ev.to(I64) + ORD_BIAS
+    return b_key, b_sgc, b_pos
 
-    # fills are provably in 0..3 here: spec chars are x6[p-1] with p-1
-    # never a separator (reads longer than k, special.py), case-2
-    # chars are single predecessor bases, and every '#'/'$' BWT char
-    # belongs to a multi-in (blue) slot — head rows force mi_seg — so
-    # those arrive via the host blue fill. 2-bit pack: 4 chars/byte.
-    q = fill6.view(R // 4, 4)
-    fill2 = (q[:, 0] << 6) | (q[:, 1] << 4) | (q[:, 2] << 2) | q[:, 3]
-    return fill2, b_key, b_sgc, b_pos, n_g, E_g
+
+def _group_rows(rows, n_valid):
+    """What a group keeps for the back half, compacted from _event_rows
+    on the device and fetched (the counts sync): host (ev_ord, bl_ord,
+    bl_seg, bl_char) and n_valid as an int. Positions ride as int32
+    ords (position - ORD_BIAS), segment starts group-local: 4 bytes a
+    SP event and 9 a blue entry."""
+    b_key, b_sgc, b_pos = _event_rows(*rows)
+    ords = (b_pos - ORD_BIAS).to(I32)
+    is_ev, is_bl = (b_key & 1) != 0, (b_key & 2) != 0
+    sgc = b_sgc[is_bl]
+    got = (ords[is_ev], ords[is_bl], (sgc >> 3).to(I32), (sgc & 7).to(U8))
+    return tuple(a.cpu().numpy() for a in got) + (int(n_valid),)
+
+
+def _sp_string(ev_ord, spec_branch_pos, x2w_ext, sep_d, N: int, k: int):
+    """oocore.sp_string on the device, from the groups' SP event ords
+    (host int32) and the text's packed words x2w_ext (16 T's first):
+    (sp_pos int64, sp6 uint8), the events in text order and, per event,
+    the char k ahead ('#' or '$' where the k-window ends at a
+    separator)."""
+    dev = x2w_ext.device
+    pos = np.concatenate([ev_ord.astype(np.int64) + ORD_BIAS,
+                          spec_branch_pos.astype(np.int64)])
+    tracing.count("h2d_bytes", pos.nbytes)
+    sp_pos = torch.sort(torch.from_numpy(pos).to(dev)).values
+    ahead = sp_pos + k
+    at = ahead + 16                      # the char's index in x2w_ext
+    c = (x2w_ext[at >> 4] >> (2 * (15 - (at & 15))).to(I32)) & 3
+    is_sepc = sep_d[torch.searchsorted(sep_d, sp_pos)] - sp_pos == k
+    sp6 = torch.where(
+        is_sepc, torch.where(ahead == N - 1, 5, 4), c.to(I64)).to(U8)
+    return sp_pos, sp6
 
 
 # ---- the JAX module's operands and results, as numpy arrays, into the
@@ -363,7 +435,9 @@ def select_to_jax(key, ord_i32, f8):
 
 def classify_from_jax(fill2, b_key, b_sgc, b_pos, n_g, E_g):
     """The JAX `_classify_group` results (R-row event arrays with a live
-    prefix of E_g) as the port's (fill2, b_key, b_sgc, b_pos, n_g, E_g)."""
+    prefix of E_g) as the port's (fill2, b_key, b_sgc, b_pos, n_g, E_g):
+    _classify_rows's fills, _event_rows's arrays, the valid rows and
+    the event rows."""
     E_g = int(E_g)
     return (
         np.asarray(fill2),
@@ -375,7 +449,8 @@ def classify_from_jax(fill2, b_key, b_sgc, b_pos, n_g, E_g):
 
 
 def classify_to_jax(fill2, b_key, b_sgc, b_pos, n_g, E_g, R: int):
-    """The port's `_classify_group` results as the JAX arrays: uint32[R]
+    """The port's classification (_classify_rows, then _event_rows, the
+    counts on the host) as the JAX `_classify_group` arrays: uint32[R]
     event arrays whose tail past E_g is (0xFFFFFFFF, 0, 0xFFFFFFFF)."""
     def full(a, pad):
         out = np.full(R, pad, dtype=np.uint32)
@@ -402,6 +477,34 @@ def _plan_groups(coll, k: int, cap: int, attempt: int):
     return G, splitters
 
 
+def _unpack_fill(fill2: torch.Tensor, out: torch.Tensor) -> None:
+    """out = the first out.shape[0] chars of 2-bit fill bytes (4 a
+    byte, the first in bits 7:6)."""
+    n = out.shape[0]
+    for i in range(4):
+        out[i::4] = (fill2[: -(-(n - i) // 4)] >> (6 - 2 * i)) & 3
+
+
+def _sidecars(bwt6: torch.Tensor) -> torch.Tensor:
+    """int64[2, n_reads]: the positions of the '#' and '$' entries of
+    the BWT, ascending, over their chars."""
+    p = torch.nonzero(bwt6 >= K.SHARP).squeeze(1)
+    return torch.stack([p, bwt6[p].to(I64)]).cpu()
+
+
+def _char_counts(bwt6: torch.Tensor) -> torch.Tensor:
+    """int64[6]: how often each character stands in the BWT, counted
+    ops.PACK_BLOCK positions at a time (a sum of `bwt6 == c` over all
+    N widened it to 8 bytes a position on the card: 24 GB more reserved
+    at 3 Gbp)."""
+    got = torch.zeros(6, dtype=I64, device=bwt6.device)
+    for s in range(0, bwt6.shape[0], ops.PACK_BLOCK):
+        blk = bwt6[s : s + ops.PACK_BLOCK]
+        for c in range(6):
+            got[c] += (blk == c).sum()
+    return got.cpu()
+
+
 @tracing.recorded
 def build_bwt_grouped(
     coll: SequenceCollection,
@@ -415,9 +518,12 @@ def build_bwt_grouped(
     is filled with the group plan, the sorted SP stream and the kernels'
     launch counts (test hook). Runs on the CUDA card unless
     device="cpu" is passed. mesh enables sharded SP ranking past
-    oocore.SP_CAP (the ooc x dist composition; see build_bwt_ooc)."""
+    oocore.SP_CAP (the ooc x dist composition; see build_bwt_ooc).
+
+    The result holds the packed words and the sidecars; its bwt6 is
+    rebuilt from them on the host when it is read."""
     from debwt_tpu_torch.oocore import (
-        SP_CAP, _sp_ranks_host, blue_fill, check_char_counts, sp_string,
+        SP_CAP, blue_order, expected_char_counts, sp_ranks,
     )
 
     config = config or PipelineConfig()
@@ -431,21 +537,17 @@ def build_bwt_grouped(
             "route larger collections to the out-of-core tier"
         )
     trace = os.environ.get("DEBWT_TRACE") == "1"
-    timings = tracing.current().timings
+    rec = tracing.current()
     launches0 = (_wk_counter.launches, seg_scan_or.launches)
 
     def _say(msg):
         if trace:
             print(f"[debwt-torch grouped] {msg}", file=sys.stderr)
 
-    def _sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    sp = build_special(coll, m)
+    with tracing.span("grouped.special", "special module (host)"):
+        sp = build_special(coll, m)
     n_spec = sp.spec_tfill.shape[0]
     assert n_spec < (1 << 28), n_spec
-    tracing.mark("special module (host)", dev)
 
     C = min(gcfg.chunk, _pow2(max(1024, N)))
     C -= C % 16
@@ -455,188 +557,189 @@ def build_bwt_grouped(
     cap = gcfg.resolved_cap(dev, N, C)
     cap -= cap % 4
 
-    # packed text with a 16-char T prologue (predecessor reads at chunk
-    # starts) and a T tail covering the last chunk's window lookahead
-    ext_len = 16 + (n_chunks - 1) * C + E
-    x2ext = _cached_buf("grouped_ext", ext_len)
-    x2ext[:16] = K.T
-    x2ext[16 : 16 + N] = coll.x2
-    x2ext[16 + N :] = K.T
-    x2w_ext = torch.from_numpy(
-        ops.pack_2bit_words_host(x2ext).view(np.int32)
-    ).to(dev)
-    del x2ext
-    sep = coll.sep.astype(np.int64)
-    tracing.mark("text pack (host)", dev)
+    with tracing.span("grouped.text", "text pack (host)"):
+        # packed text with a 16-char T prologue (predecessor reads at
+        # chunk starts) and a T tail covering the last chunk's window
+        # lookahead
+        x2w_ext = ops.pack_text(
+            coll.x2, (16 + (n_chunks - 1) * C + E) // 16, dev, lead=1)
+        sep = coll.sep.astype(np.int64)
+        sep_d, seps = _chunk_seps(sep, dev, C, n_chunks, k)
+        # the groups' fills, 4 rows a byte, each group from a byte of
+        # its own: N / 4 bytes and at most one more a group (G <= 2^16)
+        fill = torch.empty(N // 4 + (1 << 16) + 1, dtype=U8, device=dev)
+        # special row operands (the engine's T-filled m-window trick:
+        # spec key = node62 << 2 | T); spec_tfill IS the k-char node key
+        # — the 62-bit splitter domain
+        s_key_all = ((sp.spec_tfill << np.uint64(2)) | np.uint64(3)).view(
+            np.int64)
+        s_ord_all = (
+            np.arange(n_spec, dtype=np.int64) + (ORD_SPEC - ORD_BIAS)
+        ).astype(np.int32)
+    tracing.count("h2d_bytes", N + sep.nbytes)
 
-    # special row operands (the engine's T-filled m-window trick:
-    # spec key = node62 << 2 | T); spec_tfill IS the k-char node key —
-    # the 62-bit splitter domain
-    s_key_all = ((sp.spec_tfill << np.uint64(2)) | np.uint64(3)).view(np.int64)
-    s_ord_all = (
-        np.arange(n_spec, dtype=np.int64) + (ORD_SPEC - ORD_BIAS)
-    ).astype(np.int32)
-
-    fine = {"select": 0.0, "classify": 0.0, "fetch": 0.0}
     n_selected = n_classified = 0
     select_peak = None
     cap_floor = 0     # a retry's cap_run never falls below what overflowed
 
-    for attempt in range(4):
-        G, splitters = _plan_groups(coll, k, cap, attempt)
-        spec_dest = (
-            np.searchsorted(splitters, sp.spec_tfill, side="right")
-            if G > 1 else np.zeros(n_spec, np.int64)
-        )
-        spec_counts = np.bincount(spec_dest, minlength=G)
-        ns_cap = _pow2(max(16, int(spec_counts.max(initial=0))))
-        # right-size the buffer to the plan: the sorts cost by the
-        # buffer's rows, not the live ones. The JAX module lets this
-        # shrink on a retry as G doubles, so that a group which
-        # overflowed although `cap` had room overflows again; here a
-        # retry keeps at least the rows of the group that overflowed.
-        cap_run = min(cap, max(_bucket(int(N / G / _FILL)), cap_floor))
-        cap_run = min(cap_run + (-cap_run) % 4, SCAN_ROWS - 4 - ns_cap)
-        if cap_run < 4:
-            raise GroupOverflow(
-                f"{ns_cap} special rows in one group leave no room under "
-                f"the {SCAN_ROWS}-row scan bound"
+    with tracing.span("grouped.groups", "group passes (device)"):
+        for attempt in range(4):
+            tracing.count("group_attempts")
+            G, splitters = _plan_groups(coll, k, cap, attempt)
+            spec_dest = (
+                np.searchsorted(splitters, sp.spec_tfill, side="right")
+                if G > 1 else np.zeros(n_spec, np.int64)
             )
-        _say(f"plan: G={G} groups, cap={cap_run}, chunk={C} x {n_chunks}, "
-             f"ns_cap={ns_cap}")
+            spec_counts = np.bincount(spec_dest, minlength=G)
+            ns_cap = _pow2(max(16, int(spec_counts.max(initial=0))))
+            # right-size the buffer to the plan: the sorts cost by the
+            # buffer's rows, not the live ones. The JAX module lets this
+            # shrink on a retry as G doubles, so that a group which
+            # overflowed although `cap` had room overflows again; here a
+            # retry keeps at least the rows of the group that overflowed.
+            cap_run = min(cap, max(_bucket(int(N / G / _FILL)), cap_floor))
+            cap_run = min(cap_run + (-cap_run) % 4, SCAN_ROWS - 4 - ns_cap)
+            if cap_run < 4:
+                raise GroupOverflow(
+                    f"{ns_cap} special rows in one group leave no room "
+                    f"under the {SCAN_ROWS}-row scan bound"
+                )
+            _say(f"plan: G={G} groups, cap={cap_run}, chunk={C} x "
+                 f"{n_chunks}, ns_cap={ns_cap}")
+            # every group's special rows in one upload, in group order
+            # (splitters partition the keys monotonically, so the rows
+            # keep their true order within a group)
+            order = np.argsort(spec_dest, kind="stable")
+            spec_d = [torch.from_numpy(a[order]).to(dev)
+                      for a in (s_key_all, s_ord_all, sp.spec_bwt6)]
+            spec_start = np.concatenate([[0], np.cumsum(spec_counts)])
+            tracing.count("h2d_bytes", n_spec * 13)
 
-        def _sp_pad(a, fillv, smask):
-            out = np.full(ns_cap, fillv, dtype=a.dtype)
-            sel_a = a[smask]
-            out[: sel_a.shape[0]] = sel_a
-            return torch.from_numpy(out).to(dev)
-
-        bwt6 = np.empty(N, dtype=np.uint8)
-        ev_parts: list[np.ndarray] = []
-        blue_parts: list[tuple] = []
-        base = 0
-        overflow = False
-        for g in range(G):
-            t0 = time.perf_counter()
-            lo62 = int(splitters[g - 1]) if g else 0
-            hi62 = int(splitters[g]) if g < G - 1 else 0
-            bkey, bord, bf8, n_main = _select_group(
-                x2w_ext, sep, N, lo62, hi62, g == G - 1,
-                m, C, cap_run, n_chunks, E,
-            )
-            n_selected += 1
-            _sync()
-            fine["select"] += time.perf_counter() - t0
-            if select_peak is None and dev.type == "cuda":
-                # the allocator's peak so far: the first selection's own
-                select_peak = torch.cuda.max_memory_allocated(dev)
-            t0 = time.perf_counter()
-            if n_main > cap_run:
-                _say(f"group {g} overflow: {n_main} rows > cap "
-                     f"{cap_run}; retrying with more groups")
-                cap_floor = min(cap, max(cap_run, n_main))
-                overflow = True
+            kept: list = []     # per group: (base, fill byte, rows,
+            base = fo = 0       #   _group_rows' host arrays)
+            overflow = False
+            for g in range(G):
+                lo62 = int(splitters[g - 1]) if g else 0
+                hi62 = int(splitters[g]) if g < G - 1 else 0
+                with tracing.span("grouped.select", "groups.select"):
+                    bkey, bord, bf8, n_main = _select_group(
+                        x2w_ext, seps, N, lo62, hi62, g == G - 1,
+                        m, C, cap_run, E,
+                    )
+                n_selected += 1
+                if select_peak is None and dev.type == "cuda":
+                    # the allocator's peak so far: the first selection's
+                    select_peak = torch.cuda.max_memory_allocated(dev)
+                if n_main > cap_run:
+                    _say(f"group {g} overflow: {n_main} rows > cap "
+                         f"{cap_run}; retrying with more groups")
+                    cap_floor = min(cap, max(cap_run, n_main))
+                    overflow = True
+                    break
+                s0, s1 = int(spec_start[g]), int(spec_start[g + 1])
+                n_g = n_main + s1 - s0
+                with tracing.span("grouped.classify", "groups.classify"):
+                    spec = []
+                    for a, fillv in zip(spec_d, (-1, PAD_ORD, 0)):
+                        pad = torch.full((ns_cap,), fillv, dtype=a.dtype,
+                                         device=dev)
+                        pad[: s1 - s0] = a[s0:s1]
+                        spec.append(pad)
+                    fill2, rows, n_valid = _classify_rows(
+                        bkey, bord, bf8, *spec, m, cap_run, ns_cap)
+                    del bkey, bord, bf8, spec
+                    fill[fo : fo + (n_g + 3) // 4] = fill2[: (n_g + 3) // 4]
+                    del fill2
+                n_classified += 1
+                with tracing.span("grouped.rows", "groups.fetch"):
+                    *got, n_rows = tracing.wait(
+                        "grouped.rows", lambda: _group_rows(rows, n_valid))
+                    del rows, n_valid
+                    assert n_rows == n_g, (n_rows, n_main, s1 - s0)
+                    tracing.count("d2h_bytes", sum(a.nbytes for a in got))
+                    kept.append((base, fo, n_g, got))
+                base += n_g
+                fo += (n_g + 3) // 4
+                _say(f"group {g}: rows={n_g} sp={got[0].shape[0]} "
+                     f"blue={got[1].shape[0]} base={base}")
+            if not overflow:
                 break
-            smask = spec_dest == g
-            fill2, b_key, b_sgc, b_pos, n_g, E_g = _classify_group(
-                bkey, bord, bf8,
-                _sp_pad(s_key_all, np.int64(-1), smask),
-                _sp_pad(s_ord_all, np.int32(PAD_ORD), smask),
-                _sp_pad(sp.spec_bwt6, np.uint8(0), smask),
-                m, cap_run, ns_cap,
+        else:
+            raise GroupOverflow(
+                "group overflow persisted after 4 full-depth splitter "
+                f"refinements — a single node key has more than {cap_run} "
+                f"occurrences (cap {cap}) and node groups must stay "
+                "group-local; the out-of-core tier's giant-bucket path "
+                "handles this"
             )
-            n_classified += 1
-            del bkey, bord, bf8
-            assert n_g == n_main + int(smask.sum()), (
-                n_g, n_main, int(smask.sum())
-            )
-            nb = (n_g + 3) // 4
-            _sync()
-            fine["classify"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            f2 = fill2[:nb].cpu().numpy()
-            key_h = b_key.cpu().numpy()
-            sgc_h = b_sgc.cpu().numpy()
-            pos_h = b_pos.cpu().numpy()
-            del fill2, b_key, b_sgc, b_pos
-            bwt6[base : base + n_g] = _UNPACK4[f2].reshape(-1)[:n_g]
-            is_ev = (key_h & 1) != 0
-            is_bl = (key_h & 2) != 0
-            L_g, B_g = int(is_ev.sum()), int(is_bl.sum())
-            if L_g:
-                ev_parts.append(pos_h[is_ev])
-            if B_g:
-                blue_parts.append((
-                    base + (sgc_h[is_bl] >> 3),
-                    pos_h[is_bl],
-                    (sgc_h[is_bl] & 7).astype(np.uint8),
-                ))
-            base += n_g
-            fine["fetch"] += time.perf_counter() - t0
-            _say(f"group {g}: rows={n_g} sp={L_g} blue={B_g} "
-                 f"base={base}")
-        if not overflow:
-            break
-    else:
-        raise GroupOverflow(
-            "group overflow persisted after 4 full-depth splitter "
-            f"refinements — a single node key has more than {cap_run} "
-            f"occurrences (cap {cap}) and node groups must stay "
-            "group-local; the out-of-core tier's giant-bucket path "
-            "handles this"
-        )
     assert base == N, (base, N)
-    del x2w_ext
-    tracing.mark("group passes (device)", dev)
-    for kk, vv in fine.items():
-        tracing.add(f"groups.{kk}", round(vv, 3))
-    # the plan, the splitter sample, the special rows' upload and the
-    # allocation of the host BWT: the group passes less the three above
-    tracing.add("groups.other", round(
-        timings["group passes (device)"] - sum(fine.values()), 3
-    ))
+    del spec_d, seps
+    tracing.count("groups", G)
 
-    # ---- SP string + ranks + blue fill: the ooc back half ----
-    x2p = np.concatenate(
-        [coll.x2, np.full(K.TAIL_PAD, K.T, dtype=np.uint8)]
-    )
-    sp_pos, sp6 = sp_string(ev_parts, sp.spec_branch_pos, sep, x2p, N, k)
-    L = sp_pos.shape[0]
-    rank = _sp_ranks_host(sp6, L, SP_CAP, dev, _say, mesh)
-    tracing.mark("SP rank", dev)
+    # ---- SP string + ranks + blue fill: the ooc back half, on the card
+    with tracing.span("grouped.sp", "SP rank"):
+        sp_pos, sp6 = _sp_string(np.concatenate([g[0] for *_, g in kept]),
+                                 sp.spec_branch_pos, x2w_ext, sep_d, N, k)
+        del x2w_ext, sep_d
+        L = sp_pos.shape[0]
+        rank = sp_ranks(sp6, L, SP_CAP, dev, _say, mesh)
     _say(f"SP string: {L} events")
 
-    n_blue = blue_fill(bwt6, blue_parts, rank, sp_pos, dev)
-    tracing.mark("blue fill", dev)
+    with tracing.span("grouped.fill", "blue fill"):
+        # the groups' fills into one byte a position, now that the
+        # passes' buffers are freed
+        bwt6 = torch.empty(N, dtype=U8, device=dev)
+        for g_base, g_fo, n_g, _ in kept:
+            _unpack_fill(fill[g_fo : g_fo + (n_g + 3) // 4],
+                         bwt6[g_base : g_base + n_g])
+        del fill
+        b_base, b_pos, b_char = (np.concatenate(a) for a in zip(*(
+            (g[2].astype(np.int64) + g_base, g[1].astype(np.int64) + ORD_BIAS,
+             g[3]) for g_base, _, _, g in kept)))
+        del kept
+        n_blue = b_base.shape[0]
+        tracing.count("h2d_bytes", b_base.nbytes + b_pos.nbytes + n_blue)
+        coords, chars = blue_order(b_base, b_pos, b_char, rank, sp_pos, dev)
+        bwt6[coords] = chars
+        del b_base, b_pos, b_char, coords, chars, rank
     _say(f"blue entries: {n_blue}")
     tracing.count("sp_events", L)
     tracing.count("blue_entries", n_blue)
 
-    if config.check:
-        check_char_counts(bwt6, coll)
-    tracing.mark("count check (host)", dev)
-    (sharp,) = np.nonzero(bwt6 == K.SHARP)
-    (dollar,) = np.nonzero(bwt6 == K.DOLLAR)
+    with tracing.span("grouped.fill", "sidecars + pack (device)"):
+        packed = torch.empty(-(-N // 16), dtype=I32, device=dev)
+        ops.pack_codes(bwt6, packed)
+        side = tracing.wait("grouped.fill", lambda: _sidecars(bwt6)).numpy()
+        if config.check:
+            got = tracing.wait("grouped.fill",
+                               lambda: _char_counts(bwt6)).numpy()
+            want = expected_char_counts(coll)
+            assert (got == want).all(), (got, want)
+        del bwt6
+    sharp = side[0][side[1] == K.SHARP]
+    dollar = side[0][side[1] == K.DOLLAR]
     assert dollar.shape[0] == 1, dollar
-    tracing.mark("sidecars (host)", dev)
 
     if stats is not None:
+        # the SP stream on the host (a test hook): one fetch more
+        stats["sp_pos"], stats["sp6"] = tracing.wait("grouped.stats", lambda: (
+            sp_pos.cpu().numpy(), sp6.cpu().numpy()))
         stats.update(
             n_groups=G, cap=cap, cap_run=cap_run, chunk=C, n_chunks=n_chunks,
             ns_cap=ns_cap, sp_len=L, n_blue=n_blue, attempts=attempt + 1,
             groups_selected=n_selected, groups_classified=n_classified,
-            sp_pos=sp_pos, sp6=sp6, select_peak_bytes=select_peak,
+            select_peak_bytes=select_peak,
             launches={
                 "window_keys": _wk_counter.launches - launches0[0],
                 "seg_scan_or": seg_scan_or.launches - launches0[1],
             },
-            stage_s={k_: round(v, 3) for k_, v in timings.items()},
+            stage_s={k_: round(v, 3) for k_, v in rec.timings.items()},
         )
     return BwtResult(
-        sharp_pos=sharp.astype(np.int64),
+        sharp_pos=sharp,
         dollar_pos=int(dollar[0]),
-        _bwt6=bwt6,
+        packed_words=packed,
         _n=N,
-        timings=timings,
-        counters=tracing.current().counters,
+        timings=rec.timings,
+        counters=rec.counters,
     )

@@ -50,8 +50,8 @@ JAX package's, so the checkpoint fingerprint carries a version the JAX
 package never writes: neither package resumes the other's spill
 directory, nor the port one of its own older layout.
 
-The grouped tier borrows the back half (`_sp_ranks_host`,
-`blue_coordinates`, `sp_string`, `blue_fill`).
+The grouped tier borrows the back half's ranking and blue order
+(`sp_ranks`, `blue_order`) on the device.
 """
 
 from __future__ import annotations
@@ -86,10 +86,6 @@ SP_CAP = 1 << 28
 # port's spill layout is its own: version 1 of this tag held 18-byte
 # rows (key, k16, pos), version 2 the 6-byte rows (off, k16) and runs.
 _SPILL_LAYOUT = (1 << 32) | 2
-
-# codes packed a block at a time onto the device (a multiple of 16)
-_PACK_BLOCK = 1 << 26
-
 
 def _malloc_trim():
     """Return freed arena pages to the OS. The pass loops allocate and
@@ -137,23 +133,6 @@ class OocConfig:
 # ---------------------------------------------------------------------------
 # pass A: device node keys per text chunk, host binning
 # ---------------------------------------------------------------------------
-
-
-def _pack_text(x2p: np.ndarray, n_codes: int, dev) -> torch.Tensor:
-    """int32 words (ops.pack_2bit_words_host's layout) of x2p on `dev`,
-    T past its end up to n_codes codes; separators are T in x2. Packed
-    _PACK_BLOCK codes at a time, so the host holds no copy of the text."""
-    n_words = -(-n_codes // 16)
-    words = torch.empty(n_words, dtype=torch.int32, device=dev)
-    buf = np.empty(_PACK_BLOCK, dtype=np.uint8)
-    for s in range(0, 16 * n_words, _PACK_BLOCK):
-        e = min(s + _PACK_BLOCK, 16 * n_words)
-        take = max(0, min(e, x2p.shape[0]) - s)
-        buf[:take] = x2p[s : s + take]
-        buf[take : e - s] = K.T
-        blk = ops.pack_2bit_words_host(buf[: e - s]).view(np.int32)
-        words[s // 16 : e // 16].copy_(torch.from_numpy(blk))
-    return words
 
 
 def _chunk_keys(kw: torch.Tensor, k: int, C: int) -> torch.Tensor:
@@ -445,7 +424,14 @@ def sp_string(sp_pos_parts: list, spec_branch_pos, sep, x2p, N: int,
 
 def _sp_ranks_host(sp6: np.ndarray, L: int, sp_cap: int, device,
                    say, mesh=None) -> np.ndarray:
-    """Suffix ranks of sp6[:L] as a host int32 array.
+    """sp_ranks as a host int32 array."""
+    return sp_ranks(sp6, L, sp_cap, device, say, mesh).cpu().numpy()
+
+
+def sp_ranks(sp6, L: int, sp_cap: int, device,
+             say, mesh=None) -> torch.Tensor:
+    """Suffix ranks of sp6[:L] (uint8, a host array or a tensor) as an
+    int32 tensor on `device`.
 
     L <= sp_cap: single-device prefix tripling (engine path) on
     `device`, over the eighth-power bucket of L (not a power of two,
@@ -455,14 +441,16 @@ def _sp_ranks_host(sp6: np.ndarray, L: int, sp_cap: int, device,
     the whole string on the host and calls this together) and ranked
     by parallel/sprank's sample-sort prefix tripling, so no device
     holds the whole string; the ranks are then gathered to every
-    rank's host, the tier's working store.
+    rank.
     """
     if L == 0:
-        return np.empty(0, np.int32)
+        return torch.empty(0, dtype=torch.int32, device=device)
     if L <= sp_cap:
-        ext = np.zeros(_bucket(L), dtype=np.uint8)
-        ext[:L] = sp6
-        return sp_suffix_ranks(torch.from_numpy(ext).to(device), L)[:L].cpu().numpy()
+        ext = torch.zeros(_bucket(L), dtype=U8, device=device)
+        ext[:L] = torch.as_tensor(sp6[:L], device=device)
+        return sp_suffix_ranks(ext, L)[:L]
+    if isinstance(sp6, torch.Tensor):
+        sp6 = sp6.cpu().numpy()
     if mesh is None or mesh.n < 2:
         raise NotImplementedError(
             f"SP string ({L} events) exceeds the single-device rank cap "
@@ -479,7 +467,7 @@ def _sp_ranks_host(sp6: np.ndarray, L: int, sp_cap: int, device,
     blk[: part.shape[0]] = part
     rank_blk = sp_ranks_sharded(mesh, torch.from_numpy(blk).to(mesh.device), L)
     say(f"SP ranks: sharded over {n} devices (block {Pb})")
-    return all_gather_rows(mesh, rank_blk)[:L].cpu().numpy()
+    return all_gather_rows(mesh, rank_blk)[:L].to(device)
 
 
 def blue_coordinates(b_base, b_pos, b_char, rank, sp_pos, device):
@@ -494,25 +482,32 @@ def blue_coordinates(b_base, b_pos, b_char, rank, sp_pos, device):
     JAX package; the searches and the three-key sort run in torch on
     `device` (the fused engine's blue sort, engine.stage_finish, on
     entries that come from the host)."""
+    coords, chars = blue_order(b_base, b_pos, b_char, rank, sp_pos, device)
+    return coords.cpu().numpy(), chars.cpu().numpy()
+
+
+def blue_order(b_base, b_pos, b_char, rank, sp_pos, device):
+    """blue_coordinates on `device`, its results (coords int64, chars)
+    left there; each argument a host array or a tensor."""
     dev = torch.device(device)
 
-    def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+    def put(a, dtype=None):
+        return torch.as_tensor(a, device=dev, dtype=dtype)
 
-    base, pos = put(b_base, np.int64), put(b_pos, np.int64)
+    base, pos = put(b_base, torch.int64), put(b_pos, torch.int64)
     L = sp_pos.shape[0]
-    sp_idx = torch.searchsorted(put(sp_pos, np.int64), pos)
-    b_rank = put(rank, rank.dtype)[sp_idx.clamp_(max=max(0, L - 1))]
+    sp_idx = torch.searchsorted(put(sp_pos, torch.int64), pos)
+    b_rank = put(rank)[sp_idx.clamp_(max=max(0, L - 1))]
     del sp_idx
     base_s, _rank_s, _pos_s, char_s = ops.msort(
-        (base, b_rank, pos, put(b_char, b_char.dtype)), num_keys=3
+        (base, b_rank, pos, put(b_char)), num_keys=3
     )
     del base, b_rank, pos, _rank_s, _pos_s
     idx = torch.arange(base_s.shape[0], dtype=torch.int64, device=dev)
     first = base_s.new_ones(base_s.shape, dtype=torch.bool)
     first[1:] = base_s[1:] != base_s[:-1]
     within = idx - torch.cummax(torch.where(first, idx, 0), 0).values
-    return (base_s + within).cpu().numpy(), char_s.cpu().numpy()
+    return base_s + within, char_s
 
 
 def blue_fill(bwt6, blue_parts: list, rank, sp_pos, device) -> int:
@@ -543,13 +538,19 @@ def char_counts(a: np.ndarray) -> np.ndarray:
     return out
 
 
-def check_char_counts(bwt6: np.ndarray, coll: SequenceCollection):
-    """The BWT holds each character of the text (coll.x6) as often as
-    the text does: the counts of x2, less what its separator positions
+def expected_char_counts(coll: SequenceCollection) -> np.ndarray:
+    """int64[6]: how often the BWT holds each character, as the text
+    (coll.x6) does: the counts of x2, less what its separator positions
     hold, plus n_reads - 1 '#' and one '$' (no N-byte x6 copy)."""
     want = char_counts(coll.x2) - np.bincount(coll.x2[coll.sep], minlength=6)[:6]
     want[K.SHARP] += coll.n_reads - 1
     want[K.DOLLAR] += 1
+    return want
+
+
+def check_char_counts(bwt6: np.ndarray, coll: SequenceCollection):
+    """The BWT holds each character as often as the text does."""
+    want = expected_char_counts(coll)
     got = char_counts(bwt6)
     assert (got == want).all(), (got, want)
 
@@ -628,7 +629,8 @@ def build_bwt_ooc(
     sep = np.ascontiguousarray(coll.sep, dtype=np.int64)  # sep[-1] == N-1
     # the packed text on the device, for pass A's chunks (each reads C +
     # k - 1 codes from its base) and pass B's rows; a resume packs anew
-    words = _pack_text(x2p, max(x2p.shape[0], n_chunks * C + k), dev)
+    words = ops.pack_text(
+        x2p, -(-max(x2p.shape[0], n_chunks * C + k) // 16), dev)
     tracing.mark("text pack (host)", dev)
 
     # ---- pass A: keys on the device, metadata + binning on the host ----

@@ -129,6 +129,38 @@ def pack_2bit_words(codes: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= (1 << 31), words - (1 << 32), words).to(torch.int32)
 
 
+# codes a step of pack_codes and pack_text (a multiple of 16): a step's
+# transients are about 17 bytes a code
+PACK_BLOCK = 1 << 26
+
+
+def pack_codes(codes: torch.Tensor, out: torch.Tensor) -> None:
+    """out[i] = the word of codes[16 i : 16 i + 16] clamped to 0..3
+    (pack_2bit_words's layout; a short last word is padded with 0),
+    packed on their device PACK_BLOCK codes at a time."""
+    for s in range(0, codes.shape[0], PACK_BLOCK):
+        blk = codes[s : s + PACK_BLOCK].clamp(max=3)
+        out[s // 16 : s // 16 + -(-blk.shape[0] // 16)] = pack_2bit_words(blk)
+
+
+def pack_text(x2: np.ndarray, n_words: int, dev, lead: int = 0) -> torch.Tensor:
+    """int32[n_words] on `dev`: `lead` words of T's, then the packed
+    words of the host codes x2 and of T's after them. The codes cross
+    once, as they are, PACK_BLOCK at a time, and are packed on `dev`,
+    so neither the host nor the device holds a second copy of the text."""
+    words = torch.empty(n_words, dtype=torch.int32, device=dev)
+    words[:lead] = -1                    # 16 T's: every bit set
+    n = 16 * (n_words - lead)
+    for s in range(0, n, PACK_BLOCK):
+        e = min(s + PACK_BLOCK, n)
+        take = max(0, min(e, x2.shape[0]) - s)
+        blk = torch.empty(e - s, dtype=torch.uint8, device=dev)
+        blk[:take].copy_(torch.from_numpy(x2[s : s + take]))
+        blk[take:] = 3                   # T
+        pack_codes(blk, words[lead + s // 16 : lead + e // 16])
+    return words
+
+
 def keys_from_pair(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
     """JAX (hi, lo) uint32 key pairs -> the port's int64 keys."""
     key = (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | np.asarray(

@@ -48,7 +48,7 @@ class BwtResult:
     sharp_pos: np.ndarray
     dollar_pos: int
     packed_words: torch.Tensor | None = None  # int32 words (uint32 bits)
-    _bwt6: Any = None                         # np.ndarray or tensor
+    _bwt6: Any = None              # np.ndarray, tensor or None (words)
     _n: int = 0
     # per-stage wall seconds (the reference prints these on every run,
     # src/main.c:86-170; the CLI --timings flag surfaces them) and the
@@ -58,8 +58,21 @@ class BwtResult:
 
     @property
     def bwt6(self) -> np.ndarray:
+        """The 6-letter BWT on the host: fetched from the device tensor
+        the result holds, or, where it holds only the packed words and
+        the sidecars (the grouped tier), rebuilt from them."""
         b = self._bwt6
-        if not isinstance(b, np.ndarray):
+        if b is None:
+            from debwt_tpu_torch.golden import _UNPACK4
+
+            words = self.packed_words.cpu().numpy().view(np.uint32)
+            # big-endian words: a byte holds 4 codes, the first in 7:6
+            b = _UNPACK4[words.astype(">u4").view(np.uint8)].reshape(-1)
+            b = b[: self._n]
+            b[self.sharp_pos] = K.SHARP
+            b[self.dollar_pos] = K.DOLLAR
+            object.__setattr__(self, "_bwt6", b)
+        elif not isinstance(b, np.ndarray):
             b = b[: self._n].cpu().numpy()
             object.__setattr__(self, "_bwt6", b)
         return b

@@ -11,7 +11,7 @@ counts, shared by every tier.
                      span "debwt.<name>.wait"; counts one sync, and the
                      bytes of a tensor it returns as d2h_bytes.
   count(name, n)     adds n to counters[name].
-  mark(label, dev)   the grouped, out-of-core and multi-device tiers'
+  mark(label, dev)   the out-of-core and multi-device tiers'
                      sequential stage marks: synchronizes a CUDA device,
                      then adds the seconds since the last mark (or the
                      recording's start) to timings[label].

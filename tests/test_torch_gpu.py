@@ -247,6 +247,14 @@ def test_grouped_on_card_matches_golden(cuda, m, cap, chunk):
     assert r.dollar_pos == g.dollar_pos
 
 
+def _classify_group(*args):
+    """The grouped classification with its counts on the host: (fill2,
+    b_key, b_sgc, b_pos, n_g, E_g)."""
+    fill2, rows, n_valid = grouped_mod._classify_rows(*args)
+    b_key, b_sgc, b_pos = grouped_mod._event_rows(*rows)
+    return fill2, b_key, b_sgc, b_pos, int(n_valid), b_key.shape[0]
+
+
 def _one_group_rows(coll, m):
     """The select buffers and special rows of a one-group plan of coll,
     built on the CPU as build_bwt_grouped builds them."""
@@ -260,8 +268,10 @@ def _one_group_rows(coll, m):
     x2w = torch.from_numpy(pack_2bit_words_host(x2ext).view(np.int32))
     cap = _bucket(N + 64)
     cap += (-cap) % 4
+    _sep_d, seps = grouped_mod._chunk_seps(coll.sep.astype(np.int64), "cpu", C,
+                                           n_chunks, m - 1)
     bkey, bord, bf8, n = grouped_mod._select_group(
-        x2w, coll.sep.astype(np.int64), N, 0, 0, True, m, C, cap, n_chunks, E)
+        x2w, seps, N, 0, 0, True, m, C, cap, E)
     sp = build_special(coll, m)
     n_spec = sp.spec_tfill.shape[0]
     ns_cap = _pow2(max(16, n_spec))
@@ -292,9 +302,9 @@ def test_classify_positions_past_2_31_on_card(cuda, m):
     bord = torch.where(main, bord.to(torch.int64) + shift, bord).to(torch.int32)
     assert (bord[main] >= 0).all()
     args = (bkey, bord, bf8) + spec
-    want = grouped_mod._classify_group(*args, m, cap, ns_cap)
+    want = _classify_group(*args, m, cap, ns_cap)
     before = seg_or.seg_scan_or.launches
-    got = grouped_mod._classify_group(*(a.to(cuda) for a in args), m, cap, ns_cap)
+    got = _classify_group(*(a.to(cuda) for a in args), m, cap, ns_cap)
     assert seg_or.seg_scan_or.launches == before + 3
     assert got[3].dtype == torch.int64 and bool((want[3] >= 1 << 31).all())
     assert got[4:] == want[4:]

@@ -25,6 +25,7 @@ from debwt_tpu_torch.grouped import (
 )
 from debwt_tpu_torch.model import build_model
 from debwt_tpu_torch.pipeline import build_bwt
+from debwt_tpu_torch.synth import synth_concat_codes
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 
 STATS = ("n_groups", "n_chunks", "ns_cap", "sp_len", "n_blue")
@@ -236,6 +237,15 @@ def _jax_select(coll, p, g, m):
     ), lo, hi
 
 
+def _classify_group(*args):
+    """The port's classification of one group with the counts on the
+    host, as the JAX module's _classify_group returns them: (fill2,
+    b_key, b_sgc, b_pos, n_g, E_g)."""
+    fill2, rows, n_valid = grouped._classify_rows(*args)
+    b_key, b_sgc, b_pos = grouped._event_rows(*rows)
+    return fill2, b_key, b_sgc, b_pos, int(n_valid), b_key.shape[0]
+
+
 def _sorted_rows(key, ord_, f8, n):
     order = np.argsort(ord_[:n], kind="stable")
     return key[:n][order], ord_[:n][order], f8[:n][order]
@@ -260,12 +270,14 @@ def test_select_and_classify_match_jax_stages(name):
     s_lo2 = (s_lo << np.uint32(2)) | np.uint32(3)
     s_ord = jgrouped.ORD_SPEC | np.arange(n_spec, dtype=np.uint32)
     x2w_t = torch.from_numpy(p["x2w"].view(np.int32))
+    _sep_d, seps = grouped._chunk_seps(coll.sep.astype(np.int64), "cpu", p["C"],
+                                       p["n_chunks"], m - 1)
     cap_run, R = p["cap_run"], p["cap_run"] + ns_cap
     for g in range(p["G"]):
         (jhi, jlo, jord, jf8, joff), lo, hi = _jax_select(coll, p, g, m)
         bkey, bord, bf8, n = grouped._select_group(
-            x2w_t, coll.sep.astype(np.int64), p["N"], lo, hi, g == p["G"] - 1,
-            m, p["C"], cap_run, p["n_chunks"], p["E"],
+            x2w_t, seps, p["N"], lo, hi, g == p["G"] - 1,
+            m, p["C"], cap_run, p["E"],
         )
         assert n == int(joff) <= cap_run
         jrows = grouped.select_from_jax(jhi, jlo, jord, jf8, cap_run)
@@ -295,7 +307,7 @@ def test_select_and_classify_match_jax_stages(name):
         # the port's classification on the JAX rows (in the JAX order)
         # and on its own rows (in text order) gives the same outputs
         for rows in (jrows, (bkey.numpy(), bord.numpy(), bf8.numpy())):
-            got = grouped._classify_group(
+            got = _classify_group(
                 *(torch.from_numpy(np.array(a)) for a in rows),
                 torch.from_numpy(s_key), torch.from_numpy(grouped.ord_from_jax(jspec[2])),
                 torch.from_numpy(jspec[3]), m, cap_run, ns_cap,
@@ -363,7 +375,7 @@ def test_classify_positions_past_2_31_match_jax(name):
                 jhi, jlo, jnp.asarray(jord_in), jf8,
                 *(jnp.asarray(a) for a in jspec), m, cap_run, ns_cap)
             rows = grouped.select_from_jax(jhi, jlo, jord_in, jf8, cap_run)
-            got = grouped._classify_group(
+            got = _classify_group(
                 *(torch.from_numpy(np.array(a)) for a in rows), s_key, s_ordp,
                 torch.from_numpy(jspec[3]), m, cap_run, ns_cap)
             assert got[3].dtype == torch.int64
@@ -486,10 +498,11 @@ def test_cap_explicit_then_device(monkeypatch):
     assert stats["cap"] == 1000 and stats["n_groups"] >= 1
     # the CPU is bound by the scans alone, and is not asked for memory
     assert grouped.default_cap(cpu, 10**6, 1024) == grouped.SCAN_ROWS - 4
-    # a card: free memory less the resident text and a chunk's transients
+    # a card: free memory less the resident text and fills and a chunk's
+    # transients
     free, n, chunk = 20 * 2**30, 4 * 10**9, 1 << 27
     monkeypatch.setattr(api, "_device_memory_bytes", lambda dev: free)
-    want = (free - n // 4 - chunk * grouped._SELECT_BYTES_PER_POS) \
+    want = (free - n // 2 - chunk * grouped._SELECT_BYTES_PER_POS) \
         // grouped._GROUP_BYTES_PER_ROW
     assert grouped.default_cap(cuda, n, chunk) == want < grouped.SCAN_ROWS
     monkeypatch.setattr(api, "_device_memory_bytes", lambda dev: 1 << 60)
@@ -545,3 +558,96 @@ def test_grouped_default_device_needs_a_card(monkeypatch):
     coll = SequenceCollection.from_reads(_rand_reads(7, 2, 40, 60))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_bwt_grouped(coll, PipelineConfig(m=32), GroupedConfig(cap=512))
+
+
+# ---- the output on the device: packed words and sidecars ----
+
+@pytest.mark.parametrize("genomes", [1, 2, 4])
+@pytest.mark.parametrize("seed", [0, 11, 2**31 + 5])
+def test_near_identical_genomes_in_three_groups_or_more(genomes, seed):
+    """Near-identical genomes (synth_concat_codes: uniform bases, 0.2%
+    substitutions) in at least three groups: the result holds packed
+    words and sidecars, and packed(), the sidecars and bwt6 are
+    golden's, the fused engine's and the out-of-core tier's."""
+    codes, lengths = synth_concat_codes(0.012 * genomes, seed, genomes)
+    coll = SequenceCollection.from_concat(codes, lengths)
+    stats = {}
+    # a third of the text a group: four groups at the fill target
+    got = build_bwt_grouped(coll, PipelineConfig(m=32, check=True),
+                            GroupedConfig(cap=coll.bwt_len // 3, chunk=4096),
+                            stats=stats, device="cpu")
+    assert stats["n_groups"] >= 3 and stats["attempts"] == 1
+    assert got.packed_words is not None and got.packed_words.dtype == torch.int32
+    g = golden_bwt(coll)
+    packed = got.packed()
+    assert packed == g.packed()
+    np.testing.assert_array_equal(got.sharp_pos, g.sharp_pos)
+    assert got.sharp_pos.shape[0] == genomes - 1
+    assert got.dollar_pos == g.dollar_pos
+    np.testing.assert_array_equal(got.bwt6, g.bwt6)
+    assert packed == build_bwt(coll, PipelineConfig(m=32), device="cpu").packed()
+    ooc = oocore.build_bwt_ooc(coll, PipelineConfig(m=32),
+                               oocore.OocConfig(chunk=4096, n_buckets=8),
+                               device="cpu")
+    assert packed == ooc.packed() and ooc.dollar_pos == got.dollar_pos
+    np.testing.assert_array_equal(ooc.sharp_pos, got.sharp_pos)
+
+
+def test_retry_after_an_overflow_keeps_the_bytes():
+    """A hot node key overflows the first plan's groups: the tier plans
+    again with more groups, counts both attempts, and gives golden's
+    bytes through the words it keeps."""
+    rng = np.random.default_rng(8)
+    read = np.concatenate([np.zeros(1731, np.uint8),
+                           rng.choice(4, size=4300).astype(np.uint8)])
+    coll = SequenceCollection.from_reads(
+        [read, rng.choice(4, size=300).astype(np.uint8)])
+    stats = {}
+    got = build_bwt_grouped(coll, PipelineConfig(m=32, check=True),
+                            GroupedConfig(cap=2048, chunk=1024), stats=stats,
+                            device="cpu")
+    assert stats["attempts"] > 1
+    assert stats["groups_selected"] > stats["groups_classified"]
+    assert got.counters["group_attempts"] == stats["attempts"]
+    assert got.counters["groups"] == stats["n_groups"]
+    g = golden_bwt(coll)
+    assert got.packed() == g.packed()
+    np.testing.assert_array_equal(got.sharp_pos, g.sharp_pos)
+    assert got.dollar_pos == g.dollar_pos
+    np.testing.assert_array_equal(got.bwt6, g.bwt6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_device_sp_string_is_the_out_of_core_tiers(seed):
+    """The grouped tier's SP string, made from event ords and the packed
+    text, equals oocore.sp_string on the T-padded codes, for events
+    whose char k ahead is a base, a separator, '$' or past the text."""
+    rng = np.random.default_rng(seed)
+    coll = SequenceCollection.from_reads(_rand_reads(seed, 5, 40, 90))
+    N, k = coll.bwt_len, 31
+    ev = rng.choice(N - k - 1, size=40, replace=False).astype(np.int64)
+    sep = coll.sep.astype(np.int64)
+    ev[0] = N - 1 - k                    # the '$' ends its k-window
+    ev[1] = sep[0] - k                   # a '#' ends this one
+    ev = np.unique(ev)
+    branch = np.arange(N - k, N, 3, dtype=np.int64)
+    x2p = np.concatenate([coll.x2, np.full(32, 3, np.uint8)])
+    want = oocore.sp_string([ev], branch, sep, x2p, N, k)
+    x2ext = np.full(16 + N + 48, 3, np.uint8)
+    x2ext[16 : 16 + N] = coll.x2
+    words = torch.from_numpy(ops.pack_2bit_words_host(x2ext).view(np.int32))
+    ords = (ev - grouped.ORD_BIAS).astype(np.int32)
+    got = grouped._sp_string(ords, branch, words, torch.from_numpy(sep), N, k)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    assert {4, 5} <= set(want[1].tolist())
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 200])
+def test_char_counts_by_blocks(monkeypatch, n):
+    """The check's character counts, a block of 64 positions at a time,
+    are np.bincount's."""
+    monkeypatch.setattr(ops, "PACK_BLOCK", 64)
+    b = np.random.default_rng(n).integers(0, 6, size=n).astype(np.uint8)
+    got = grouped._char_counts(torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got, np.bincount(b, minlength=6))

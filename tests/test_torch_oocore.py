@@ -492,7 +492,7 @@ def test_row_keys_match_jax_chunk_keys(m):
     x2p = np.concatenate([coll.x2, np.full(32, 3, np.uint8)])
     C = 200
     n_chunks = -(-N // C)
-    words = oocore._pack_text(x2p, n_chunks * C + k, "cpu")
+    words = ops.pack_text(x2p, -(-(n_chunks * C + k) // 16), "cpu")
     rng = np.random.default_rng(m + 1)
     pos = np.sort(rng.choice(N, size=N // 5, replace=False)).astype(np.int64)
     pos[-1] = N - 1                        # the last position: a T halo

@@ -68,3 +68,23 @@ def test_msort_matches_lexsort(rng, dtypes):
 def test_window_keys_rejects_bad_width():
     with pytest.raises(ValueError):
         ops.window_keys(torch.zeros(40, dtype=torch.uint8), 33)
+
+
+@pytest.mark.parametrize("n,n_words,lead", [(100, 9, 1), (95, 6, 0), (1, 2, 1),
+                                            (250, 20, 0)])
+def test_pack_text_is_the_host_pack_of_the_padded_codes(rng, monkeypatch, n,
+                                                         n_words, lead):
+    """pack_text, a block of 32 codes at a time: `lead` words of T's,
+    then the host pack of the codes and the T's after them; pack_codes
+    clamps a BWT's '#' and '$' to 3 as it packs."""
+    monkeypatch.setattr(ops, "PACK_BLOCK", 32)
+    x = rng.integers(0, 4, size=n).astype(np.uint8)
+    want = np.full(16 * n_words, 3, np.uint8)
+    want[16 * lead : 16 * lead + n] = x
+    got = ops.pack_text(x, n_words, "cpu", lead=lead).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, ops.pack_2bit_words_host(want))
+    six = rng.integers(0, 6, size=n).astype(np.uint8)
+    out = torch.empty(-(-n // 16), dtype=torch.int32)
+    ops.pack_codes(torch.from_numpy(six), out)
+    np.testing.assert_array_equal(out.numpy().view(np.uint32),
+                                  ops.pack_2bit_words_host(np.minimum(six, 3)))

@@ -136,7 +136,7 @@ def test_grouped_cap_variable_lowers_the_default_only(monkeypatch):
         assert GroupedConfig().resolved_cap(cpu, n, chunk) == want
     assert GroupedConfig(cap=512).resolved_cap(cpu, n, chunk) == 512
     cuda = torch.device("cuda")
-    free = (n // 4 + chunk * grouped._SELECT_BYTES_PER_POS
+    free = (n // 2 + chunk * grouped._SELECT_BYTES_PER_POS
             + 5000 * grouped._GROUP_BYTES_PER_ROW)
     _fake_card(monkeypatch, free)
     assert grouped.default_cap(cuda, n, chunk) == 5000

@@ -156,6 +156,87 @@ def test_counts_match_the_grouped_tier(seed):
     assert grouped.packed() == fused.packed() == ooc.packed()
 
 
+GROUPED_TREE = [
+    ("debwt.build", None),
+    ("debwt.route", "debwt.build"),
+    ("debwt.grouped", "debwt.build"),
+    ("debwt.grouped.special", "debwt.grouped"),
+    ("debwt.grouped.text", "debwt.grouped"),
+    ("debwt.grouped.groups", "debwt.grouped"),
+    ("debwt.grouped.select", "debwt.grouped.groups"),
+    ("debwt.grouped.select.wait", "debwt.grouped.select"),
+    ("debwt.grouped.classify", "debwt.grouped.groups"),
+    ("debwt.grouped.rows", "debwt.grouped.groups"),
+    ("debwt.grouped.rows.wait", "debwt.grouped.rows"),
+    ("debwt.grouped.sp", "debwt.grouped"),
+    ("debwt.rank.enqueue", "debwt.grouped.sp"),
+    ("debwt.rank.wait", "debwt.grouped.sp"),
+    ("debwt.grouped.fill", "debwt.grouped"),
+    ("debwt.grouped.fill.wait", "debwt.grouped.fill"),
+    ("debwt.grouped.stats.wait", "debwt.grouped"),
+    ("debwt.pack", None),
+    ("debwt.pack.wait", "debwt.pack"),
+    ("debwt.pack.assemble", "debwt.pack"),
+]
+
+
+@pytest.fixture(scope="module")
+def grouped_traced():
+    coll = _coll(6, n=7)
+    stats = {}
+
+    def run():
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(api, "_SINGLE_ROWS", 64)
+
+            def no_mark(*a, **k):
+                raise AssertionError("tracing.mark on the grouped path")
+
+            syncs = []
+            mp.setattr(tracing, "mark", no_mark)
+            mp.setattr(torch.cuda, "synchronize",
+                       lambda *a, **k: syncs.append(a))
+            r = api.build(coll, PipelineConfig(m=32, check=True), device=CPU,
+                          gcfg=GroupedConfig(cap=256), stats=stats)
+            return r, r.packed(), syncs
+
+    (r, packed, syncs), events = _profiled(run)
+    return coll, r, packed, syncs, stats, events
+
+
+def test_grouped_build_span_tree(grouped_traced):
+    """The grouped route opens its stages as spans, each inside its
+    parent and only there, and no other span."""
+    *_, stats, events = grouped_traced
+    assert stats["n_groups"] >= 2
+    assert _tree(events) == set(GROUPED_TREE)
+
+
+def test_grouped_path_waits_only_in_wait(grouped_traced):
+    """No tracing.mark, no torch.cuda.synchronize; each blocking fetch
+    is a wait span, counted once; the tier's labels and counters."""
+    coll, r, packed, syncs, stats, events = grouped_traced
+    assert syncs == []
+    waits = [e for e in events if e.name.endswith(".wait")]
+    assert r.counters["syncs"] == len(waits) > 0
+    G = stats["n_groups"]
+    # a chunk's count a group, a group's rows, the sidecars and the
+    # count check, the rank rounds, the stats hook, the pack's fetch
+    assert r.counters["syncs"] == (G * stats["n_chunks"] + G + 2
+                                   + r.counters["rank_rounds"] + 1 + 1)
+    assert r.counters["groups"] == G and r.counters["group_attempts"] == 1
+    assert r.counters["sp_events"] == stats["sp_len"] > 0
+    assert r.counters["blue_entries"] == stats["n_blue"] > 0
+    assert r.counters["h2d_bytes"] >= coll.bwt_len
+    assert r.counters["d2h_bytes"] >= 4 * -(-coll.bwt_len // 16)
+    assert {"special module (host)", "text pack (host)",
+            "group passes (device)", "groups.select", "groups.classify",
+            "groups.fetch", "SP rank", "blue fill",
+            "sidecars + pack (device)", "packed"} == set(r.timings)
+    assert set(stats["stage_s"]) == set(r.timings) - {"packed"}
+    assert packed == build_bwt(coll, PipelineConfig(m=32), device=CPU).packed()
+
+
 def test_bytes_unchanged_by_the_profiler(fused_traced):
     coll, r, packed, _ = fused_traced
     plain = api.build(coll, PipelineConfig(m=32), device=CPU)
