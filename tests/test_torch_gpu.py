@@ -14,7 +14,7 @@ import torch
 
 from debwt_tpu_torch import api, count_kmers, ops
 from debwt_tpu_torch import grouped as grouped_mod
-from debwt_tpu_torch.golden import golden_bwt
+from debwt_tpu_torch.golden import golden_bwt, pack_2bit_u64
 from debwt_tpu_torch.grouped import GroupedConfig, build_bwt_grouped
 from debwt_tpu_torch.kernels import seg_or
 from debwt_tpu_torch.kernels import window_keys as wk
@@ -320,6 +320,45 @@ def test_api_routes_to_grouped_on_card(cuda, monkeypatch):
                   gcfg=GroupedConfig(cap=512), stats=stats)
     assert "groups.select" in r.timings and stats["cap"] == 512
     assert r.packed() == golden_bwt(coll).packed()
+
+
+def _span_parent(e):
+    p = e.cpu_parent
+    while p is not None and not p.name.startswith("debwt."):
+        p = p.cpu_parent
+    return None if p is None else p.name
+
+
+@pytest.mark.parametrize("tier", ["fused", "grouped"])
+def test_packed_makes_the_file_order_on_card(cuda, tier):
+    """packed() of a result held on the card: the host pack of its bwt6,
+    fetched in one debwt.pack.wait of 8 ceil(N / 32) bytes inside
+    debwt.pack, beside debwt.pack.assemble. N is 1 to 16 past a multiple
+    of 32, so the grouped tier's ceil(N / 16) words are odd; the fused
+    engine's run past N."""
+    reads = _repeat_reads(18)
+    while not 1 <= sum(len(s) + 1 for s in reads) % 32 <= 16:
+        reads[-1] = reads[-1][:-1]
+    coll = SequenceCollection.from_reads(reads)
+    if tier == "fused":
+        r = build_bwt(coll, PipelineConfig(m=32))
+    else:
+        r = build_bwt_grouped(coll, PipelineConfig(m=32),
+                              GroupedConfig(cap=512, chunk=256))
+    assert r.packed_words.device.type == "cuda"
+    before = dict(r.counters)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = r.packed()
+    c = r.counters
+    assert c["syncs"] - before["syncs"] == 1
+    assert c["d2h_bytes"] - before.get("d2h_bytes", 0) == 8 * -(-coll.bwt_len // 32)
+    assert c["pack_on_device"] == 1
+    spans = [e for e in prof.events() if e.name.startswith("debwt.")]
+    assert sorted((e.name, _span_parent(e)) for e in spans) == [
+        ("debwt.pack", None), ("debwt.pack.assemble", "debwt.pack"),
+        ("debwt.pack.wait", "debwt.pack")]
+    assert got == pack_2bit_u64(r.bwt6) == golden_bwt(coll).packed()
 
 
 @pytest.mark.parametrize("m,fields", [
