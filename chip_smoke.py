@@ -892,12 +892,12 @@ def _check_grouped_counts(stats: dict, counts: dict, what: str):
 def phase_verify_count(dev):
     """lf_verify accepts the 4.6 Mbp result and rejects a copy with one
     flipped character; count_kmers equals a host count."""
-    import dataclasses
-
     import numpy as np
+    import torch
 
     from debwt_tpu_torch import count_kmers
     from debwt_tpu_torch.api import build
+    from debwt_tpu_torch.pipeline import BwtResult
     from debwt_tpu_torch.synth import synth_collection
     from debwt_tpu_torch.types import PipelineConfig
     from debwt_tpu_torch.verify import _FAST_N, lf_verify
@@ -913,7 +913,7 @@ def phase_verify_count(dev):
     t_ok = time.perf_counter() - t0
     bad = r.bwt6.copy()
     bad[int(np.nonzero(bad < 4)[0][N // 3])] ^= 1
-    if lf_verify(dataclasses.replace(r, packed_words=None, _bwt6=bad), coll):
+    if lf_verify(BwtResult.from_bwt6(torch.from_numpy(bad), coll.n_reads), coll):
         raise AssertionError("lf_verify accepts a BWT with a flipped character")
     say(json.dumps({"lf_verify_mbp": min(E2E_MBP), "n": N, "walker": "native",
                     "path": "full LF permutation", "accepts_result": True,

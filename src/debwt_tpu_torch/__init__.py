@@ -21,16 +21,20 @@ multi-device tier):
   grouped                device-resident grouped tier (key-range groups
                          re-derived from the resident packed text)
   oocore                 out-of-core tier (host-DRAM or disk buckets,
-                         checkpoint/resume); its back half, SP ranking
-                         (bluesort) and the blue fill, serves the grouped
-                         tier too
+                         checkpoint/resume)
+  bluesort               the back half the grouped, out-of-core and
+                         multi-device tiers share: SP suffix ranks
+                         (sp_ranks) and the blue-entry order (blue_order)
   parallel               multi-device tier over a torch.distributed group:
                          mesh, collectives, dist (dist_build_bwt), sprank
                          (sharded SP ranking, also for ooc x dist)
   count                  (k+1)-mer counting on the device
   verify                 LF-walk invertibility check
   model / transfer_n     NumPy stage model; N-removal prep tool
-  pipeline / api / cli   build_bwt, tier routing, command line
+  pipeline / api / cli   build_bwt, tier routing, command line;
+                         pipeline.BwtResult is every tier's result, made
+                         by BwtResult.from_bwt6: the 2-bit words on the
+                         build's device and the '#'/'$' sidecars
   tracing                one recorder for every tier: profiler spans,
                          stage seconds (timings) and counts (counters)
 

@@ -230,20 +230,14 @@ def stage_graph(
     )
 
 
-def _compact_rows(mask: torch.Tensor, cap: int):
-    """Row indices of the first `cap` True entries of mask (clamped),
-    and which of the `cap` slots are real."""
-    cs = torch.cumsum(mask.to(I64), 0)
-    q = torch.arange(1, cap + 1, dtype=I64, device=mask.device)
-    rows = torch.searchsorted(cs, q, side="left")
-    return rows.clamp(max=mask.shape[0] - 1), q <= cs[-1]
-
-
 def stage_finish(
     x2p, ev_key, mi_row, seg_start, r_pos, bwt_char,
     bwt6_partial, spec_branch_pos, n_real: int,
-    m: int, N: int, L_cap: int, B_cap: int, n_sharp_cap: int = 1,
+    m: int, N: int, L_cap: int, B_cap: int,
 ):
+    """The finished 6-letter BWT (uint8[N], the rows past n_real 0):
+    the SP stream ranked by prefix tripling, the blue entries sorted by
+    (node, rank) and scattered into bwt6_partial."""
     dev = x2p.device
     k = m - 1
 
@@ -310,18 +304,7 @@ def stage_finish(
         tgt = torch.where(base_s < N, base_s + within, N).clamp(max=N)
         bwt6 = torch.cat([bwt6_partial, bwt6_partial.new_zeros(1)])
         bwt6[tgt.to(I64)] = char_s                                    # N: dropped
-        bwt6 = bwt6[:N]
-        # zero the bucket-padding tail so packed words are clean
-        bwt6[n_real:] = 0
-        packed = ops.pack_2bit_words(bwt6.clamp(max=3))
-        # sidecars + conservation counts on the device (keeps d2h tiny)
-        is_sharp = bwt6 == 4
-        sharp_rows, sharp_ok = _compact_rows(is_sharp, n_sharp_cap)
-        sharp = torch.where(sharp_ok, sharp_rows, N)
-        n_sharp = is_sharp.sum()
-        dollar = torch.argmax((bwt6 == 5).to(U8))   # exactly one '$'
-        counts6 = torch.bincount(bwt6[:n_real].to(I64), minlength=6)
-        return bwt6, packed, sharp, dollar, n_sharp, counts6
+        return bwt6[:N]
 
 
 def _suffix_ranks(sp6: torch.Tensor, L_dyn: int,

@@ -26,12 +26,12 @@ host:
     buffer of N / 4 bytes allocated before the passes (so that every
     group's transients fit where the last group's were); its SP event
     positions and blue entries (branch events only — tiny next to the
-    text) are compacted there and fetched. The back half is the
-    out-of-core tier's on the device: its SP string (_sp_string, from
-    the packed text), oocore.sp_ranks and oocore.blue_order; the BWT,
-    its '#'/'$' sidecars and packed words are made there, as the fused
-    engine makes them, so that only the words and the sidecars cross
-    back.
+    text) are compacted there and fetched. The back half runs on the
+    device: the SP string (_sp_string, from the packed text), then
+    bluesort.sp_ranks and bluesort.blue_order, shared with the
+    out-of-core and multi-device tiers; the BWT is finished there by
+    BwtResult.from_bwt6, as every tier's is, so that only the words and
+    the sidecars cross back.
 
 The text crosses once, as its uint8 codes, and is packed on the
 device (ops.pack_text). Stages are tracing.py spans (grouped.special, .text, .groups
@@ -68,11 +68,12 @@ import sys
 import numpy as np
 import torch
 
-from debwt_tpu_torch import constants as K
-from debwt_tpu_torch import engine, ops, tracing
+from debwt_tpu_torch import bluesort, engine, ops, tracing
 from debwt_tpu_torch.kernels.seg_or import seg_scan_or
 from debwt_tpu_torch.kernels.window_keys import window_keys as _wk_counter
-from debwt_tpu_torch.pipeline import BwtResult, _bucket, _pow2, resolve_device
+from debwt_tpu_torch.pipeline import (
+    BwtResult, _bucket, _pow2, expected_char_counts, resolve_device,
+)
 from debwt_tpu_torch.special import build_special
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 
@@ -165,24 +166,6 @@ def default_cap(dev: torch.device, n: int, chunk: int) -> int:
 
 class GroupOverflow(RuntimeError):
     pass
-
-
-def sample_splitters64(x2: np.ndarray, n: int, k: int, seed: int = 17,
-                       samples: int = 1 << 18) -> np.ndarray:
-    """n-1 equal-depth uint64 splitters over full k-char node keys
-    (the balance role of mySort's cumulative bucket counts,
-    src/mySort.c:104-110, at maximal depth). Same seed and sample count
-    as the JAX package, so both plan the same groups."""
-    P = max(1, x2.shape[0] - k)
-    idx = np.random.default_rng(seed).integers(0, P, size=samples)
-    v = np.zeros(samples, dtype=np.uint64)
-    for i in range(k):
-        v = (v << np.uint64(2)) | x2[
-            np.minimum(idx + i, x2.shape[0] - 1)
-        ].astype(np.uint64)
-    v.sort()
-    qs = (np.arange(1, n) * samples) // n
-    return v[qs]
 
 
 def _chunk_seps(sep: np.ndarray, dev, C: int, n_chunks: int, k: int):
@@ -471,9 +454,7 @@ def _plan_groups(coll, k: int, cap: int, attempt: int):
     G = min(65536, G << attempt)      # retry doubles the group count
     if G == 1:
         return G, np.empty(0, np.uint64)
-    splitters = sample_splitters64(
-        coll.x2, G, k, seed=17 + attempt, samples=1 << 18
-    )
+    splitters = ops.sample_splitters(coll.x2, G, k, 17 + attempt, 1 << 18)
     return G, splitters
 
 
@@ -483,26 +464,6 @@ def _unpack_fill(fill2: torch.Tensor, out: torch.Tensor) -> None:
     n = out.shape[0]
     for i in range(4):
         out[i::4] = (fill2[: -(-(n - i) // 4)] >> (6 - 2 * i)) & 3
-
-
-def _sidecars(bwt6: torch.Tensor) -> torch.Tensor:
-    """int64[2, n_reads]: the positions of the '#' and '$' entries of
-    the BWT, ascending, over their chars."""
-    p = torch.nonzero(bwt6 >= K.SHARP).squeeze(1)
-    return torch.stack([p, bwt6[p].to(I64)]).cpu()
-
-
-def _char_counts(bwt6: torch.Tensor) -> torch.Tensor:
-    """int64[6]: how often each character stands in the BWT, counted
-    ops.PACK_BLOCK positions at a time (a sum of `bwt6 == c` over all
-    N widened it to 8 bytes a position on the card: 24 GB more reserved
-    at 3 Gbp)."""
-    got = torch.zeros(6, dtype=I64, device=bwt6.device)
-    for s in range(0, bwt6.shape[0], ops.PACK_BLOCK):
-        blk = bwt6[s : s + ops.PACK_BLOCK]
-        for c in range(6):
-            got[c] += (blk == c).sum()
-    return got.cpu()
 
 
 @tracing.recorded
@@ -518,14 +479,7 @@ def build_bwt_grouped(
     is filled with the group plan, the sorted SP stream and the kernels'
     launch counts (test hook). Runs on the CUDA card unless
     device="cpu" is passed. mesh enables sharded SP ranking past
-    oocore.SP_CAP (the ooc x dist composition; see build_bwt_ooc).
-
-    The result holds the packed words and the sidecars; its bwt6 is
-    rebuilt from them on the host when it is read."""
-    from debwt_tpu_torch.oocore import (
-        SP_CAP, blue_order, expected_char_counts, sp_ranks,
-    )
-
+    bluesort.SP_CAP (the ooc x dist composition; see build_bwt_ooc)."""
     config = config or PipelineConfig()
     gcfg = gcfg or GroupedConfig()
     dev = resolve_device(device)
@@ -682,7 +636,7 @@ def build_bwt_grouped(
                                  sp.spec_branch_pos, x2w_ext, sep_d, N, k)
         del x2w_ext, sep_d
         L = sp_pos.shape[0]
-        rank = sp_ranks(sp6, L, SP_CAP, dev, _say, mesh)
+        rank = bluesort.sp_ranks(sp6, L, bluesort.SP_CAP, dev, _say, mesh)
     _say(f"SP string: {L} events")
 
     with tracing.span("grouped.fill", "blue fill"):
@@ -699,7 +653,8 @@ def build_bwt_grouped(
         del kept
         n_blue = b_base.shape[0]
         tracing.count("h2d_bytes", b_base.nbytes + b_pos.nbytes + n_blue)
-        coords, chars = blue_order(b_base, b_pos, b_char, rank, sp_pos, dev)
+        coords, chars = bluesort.blue_order(b_base, b_pos, b_char, rank,
+                                            sp_pos, dev)
         bwt6[coords] = chars
         del b_base, b_pos, b_char, coords, chars, rank
     _say(f"blue entries: {n_blue}")
@@ -707,18 +662,10 @@ def build_bwt_grouped(
     tracing.count("blue_entries", n_blue)
 
     with tracing.span("grouped.fill", "sidecars + pack (device)"):
-        packed = torch.empty(-(-N // 16), dtype=I32, device=dev)
-        ops.pack_codes(bwt6, packed)
-        side = tracing.wait("grouped.fill", lambda: _sidecars(bwt6)).numpy()
-        if config.check:
-            got = tracing.wait("grouped.fill",
-                               lambda: _char_counts(bwt6)).numpy()
-            want = expected_char_counts(coll)
-            assert (got == want).all(), (got, want)
+        result = BwtResult.from_bwt6(
+            bwt6, coll.n_reads,
+            expected_char_counts(coll) if config.check else None)
         del bwt6
-    sharp = side[0][side[1] == K.SHARP]
-    dollar = side[0][side[1] == K.DOLLAR]
-    assert dollar.shape[0] == 1, dollar
 
     if stats is not None:
         # the SP stream on the host (a test hook): one fetch more
@@ -735,11 +682,4 @@ def build_bwt_grouped(
             },
             stage_s={k_: round(v, 3) for k_, v in rec.timings.items()},
         )
-    return BwtResult(
-        sharp_pos=sharp,
-        dollar_pos=int(dollar[0]),
-        packed_words=packed,
-        _n=N,
-        timings=rec.timings,
-        counters=rec.counters,
-    )
+    return result

@@ -29,9 +29,12 @@ or on disk when a spill directory is given:
                           node-boundary slabs; single-key giants reduced
                           directly)
   SP rank (device)        the SP string (branch events only) ranked by
-                          prefix tripling
+                          prefix tripling (bluesort.sp_ranks)
   blue fill               blue entries ordered by (block base, SP rank,
-                          position) on the device, scattered on the host
+                          position) on the device (bluesort.blue_order),
+                          scattered on the host
+  finish (host)           BwtResult.from_bwt6 on the host BWT: words,
+                          sidecars and the check, as every tier's
 
 Coordinates are int64: a text position past 2^32 is exact on the host
 and on the device, where pass B moves a bucket's positions (int64) for
@@ -50,8 +53,10 @@ JAX package's, so the checkpoint fingerprint carries a version the JAX
 package never writes: neither package resumes the other's spill
 directory, nor the port one of its own older layout.
 
-The grouped tier borrows the back half's ranking and blue order
-(`sp_ranks`, `blue_order`) on the device.
+sp_string builds the SP string on the host from the codes; the grouped
+tier builds it on the card from its packed words (grouped._sp_string).
+The two stay apart because this tier frees its device words before its
+back half.
 """
 
 from __future__ import annotations
@@ -67,20 +72,18 @@ import torch
 
 from debwt_tpu_torch import constants as K
 from debwt_tpu_torch import engine, ops, tracing
-from debwt_tpu_torch.bluesort import sp_suffix_ranks
+from debwt_tpu_torch.bluesort import SP_CAP, blue_order, sp_ranks
 from debwt_tpu_torch.io import native
 from debwt_tpu_torch.kernels.seg_or import seg_scan_or
 from debwt_tpu_torch.kernels.window_keys import window_keys as _wk_counter
 from debwt_tpu_torch.kernels.window_keys import window_keys_at as _wk_at_counter
-from debwt_tpu_torch.pipeline import BwtResult, _bucket, _pow2, resolve_device
+from debwt_tpu_torch.pipeline import (
+    BwtResult, _pow2, expected_char_counts, resolve_device,
+)
 from debwt_tpu_torch.special import build_special
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 
 U8 = torch.uint8
-
-# Longest SP string ranked on one device (OocConfig.sp_cap's default);
-# past it the ranking is sharded over devices.
-SP_CAP = 1 << 28
 
 # The JAX package's fingerprint ends in 2 (its splitter format); the
 # port's spill layout is its own: version 1 of this tag held 18-byte
@@ -150,25 +153,6 @@ def _row_keys(words: torch.Tensor, pos: np.ndarray, k: int) -> torch.Tensor:
     kernel 1's gathered form."""
     pos_d = torch.from_numpy(np.ascontiguousarray(pos, dtype=np.int64))
     return ops.window_keys_at(words, pos_d.to(words.device), k)
-
-
-def sample_splitters(x2: np.ndarray, n: int, c: int, seed: int = 17,
-                     samples: int = 1 << 16) -> np.ndarray:
-    """n-1 equal-depth uint32 splitters over c-char window prefixes
-    (the balance role of mySort's cumulative bucket counts,
-    src/mySort.c:104-110). c = min(16, k) chars: deep enough to split
-    hot 8-char buckets under low-complexity skew; only a single k-mer
-    with > 1/n mass is unsplittable (node groups must stay
-    bucket-local by design). Same seed and sample count as the JAX
-    package, so both cut the same buckets."""
-    P = max(1, x2.shape[0] - c)
-    idx = np.random.default_rng(seed).integers(0, P, size=samples)
-    v = np.zeros(samples, dtype=np.uint32)
-    for i in range(c):
-        v = (v << 2) | x2[np.minimum(idx + i, x2.shape[0] - 1)].astype(np.uint32)
-    v.sort()
-    qs = (np.arange(1, n) * samples) // n
-    return v[qs]
 
 
 def _bin_rows_numpy(key, c0: int, sep, x2p, N: int, splitters,
@@ -403,7 +387,7 @@ def _ckpt_save(d, st):
 
 
 # ---------------------------------------------------------------------------
-# the back half: SP string, SP ranks, blue fill (the grouped tier's too)
+# the SP string (its ranks and the blue order: bluesort)
 # ---------------------------------------------------------------------------
 
 
@@ -420,139 +404,6 @@ def sp_string(sp_pos_parts: list, spec_branch_pos, sep, x2p, N: int,
         is_sepc, np.where(sp_pos + k == N - 1, 5, 4), x2p[sp_pos + k]
     ).astype(np.uint8)
     return sp_pos, sp6
-
-
-def _sp_ranks_host(sp6: np.ndarray, L: int, sp_cap: int, device,
-                   say, mesh=None) -> np.ndarray:
-    """sp_ranks as a host int32 array."""
-    return sp_ranks(sp6, L, sp_cap, device, say, mesh).cpu().numpy()
-
-
-def sp_ranks(sp6, L: int, sp_cap: int, device,
-             say, mesh=None) -> torch.Tensor:
-    """Suffix ranks of sp6[:L] (uint8, a host array or a tensor) as an
-    int32 tensor on `device`.
-
-    L <= sp_cap: single-device prefix tripling (engine path) on
-    `device`, over the eighth-power bucket of L (not a power of two,
-    which would pad every rank-round sort by up to 2x).
-    L  > sp_cap: the ooc x dist composition. The SP string is
-    block-sharded over `mesh` (a parallel.mesh.Mesh; every rank holds
-    the whole string on the host and calls this together) and ranked
-    by parallel/sprank's sample-sort prefix tripling, so no device
-    holds the whole string; the ranks are then gathered to every
-    rank.
-    """
-    if L == 0:
-        return torch.empty(0, dtype=torch.int32, device=device)
-    if L <= sp_cap:
-        ext = torch.zeros(_bucket(L), dtype=U8, device=device)
-        ext[:L] = torch.as_tensor(sp6[:L], device=device)
-        return sp_suffix_ranks(ext, L)[:L]
-    if isinstance(sp6, torch.Tensor):
-        sp6 = sp6.cpu().numpy()
-    if mesh is None or mesh.n < 2:
-        raise NotImplementedError(
-            f"SP string ({L} events) exceeds the single-device rank cap "
-            f"{sp_cap} and no multi-device mesh was given; pass mesh= "
-            "(build_bwt_ooc) or route via api.build"
-        )
-    from debwt_tpu_torch.parallel.collectives import all_gather_rows
-    from debwt_tpu_torch.parallel.sprank import sp_ranks_sharded
-
-    n, r = mesh.n, mesh.rank
-    Pb = max(8, _pow2(-(-L // n)))   # round 0 reads an 8-char halo
-    blk = np.zeros(Pb, dtype=np.uint8)
-    part = sp6[r * Pb : min(L, (r + 1) * Pb)]
-    blk[: part.shape[0]] = part
-    rank_blk = sp_ranks_sharded(mesh, torch.from_numpy(blk).to(mesh.device), L)
-    say(f"SP ranks: sharded over {n} devices (block {Pb})")
-    return all_gather_rows(mesh, rank_blk)[:L].to(device)
-
-
-def blue_coordinates(b_base, b_pos, b_char, rank, sp_pos, device):
-    """Final BWT coordinates of the case-3 (blue) entries: sort by
-    (block base, SP-suffix rank, position) — position ascending for
-    equal ranks is the reference's LIFO-queue drain discipline
-    (src/generateSP.c:662-680) — then coordinate = base + index within
-    the equal-base run. All arithmetic is int64: bases past 2^32 (the
-    30 Gbp tier) are exact.
-
-    Host arrays in, host arrays out (coords int64, chars), as in the
-    JAX package; the searches and the three-key sort run in torch on
-    `device` (the fused engine's blue sort, engine.stage_finish, on
-    entries that come from the host)."""
-    coords, chars = blue_order(b_base, b_pos, b_char, rank, sp_pos, device)
-    return coords.cpu().numpy(), chars.cpu().numpy()
-
-
-def blue_order(b_base, b_pos, b_char, rank, sp_pos, device):
-    """blue_coordinates on `device`, its results (coords int64, chars)
-    left there; each argument a host array or a tensor."""
-    dev = torch.device(device)
-
-    def put(a, dtype=None):
-        return torch.as_tensor(a, device=dev, dtype=dtype)
-
-    base, pos = put(b_base, torch.int64), put(b_pos, torch.int64)
-    L = sp_pos.shape[0]
-    sp_idx = torch.searchsorted(put(sp_pos, torch.int64), pos)
-    b_rank = put(rank)[sp_idx.clamp_(max=max(0, L - 1))]
-    del sp_idx
-    base_s, _rank_s, _pos_s, char_s = ops.msort(
-        (base, b_rank, pos, put(b_char)), num_keys=3
-    )
-    del base, b_rank, pos, _rank_s, _pos_s
-    idx = torch.arange(base_s.shape[0], dtype=torch.int64, device=dev)
-    first = base_s.new_ones(base_s.shape, dtype=torch.bool)
-    first[1:] = base_s[1:] != base_s[:-1]
-    within = idx - torch.cummax(torch.where(first, idx, 0), 0).values
-    return base_s + within, char_s
-
-
-def blue_fill(bwt6, blue_parts: list, rank, sp_pos, device) -> int:
-    """Scatter the blue entries (base, pos, char) parts into bwt6 at
-    their final coordinates; returns how many there were."""
-    if not blue_parts:
-        return 0
-    b_base, b_pos, b_char = (
-        np.concatenate([p[i] for p in blue_parts]) for i in range(3)
-    )
-    coords, chars = blue_coordinates(b_base, b_pos, b_char, rank, sp_pos, device)
-    bwt6[coords] = chars
-    return int(b_base.shape[0])
-
-
-# characters a block of char_counts: at 3 Gbp np.bincount of the whole
-# array would widen it to 24 GB of intp, and a block of 1 MiB keeps the
-# six compare-and-count passes over it in the cache, not in memory
-_COUNT_BLOCK = 1 << 20
-
-
-def char_counts(a: np.ndarray) -> np.ndarray:
-    """int64[6] counts of the codes 0..5 in `a`, a block at a time."""
-    out = np.zeros(6, dtype=np.int64)
-    for s in range(0, a.shape[0], _COUNT_BLOCK):
-        blk = a[s : s + _COUNT_BLOCK]
-        out += [np.count_nonzero(blk == c) for c in range(6)]
-    return out
-
-
-def expected_char_counts(coll: SequenceCollection) -> np.ndarray:
-    """int64[6]: how often the BWT holds each character, as the text
-    (coll.x6) does: the counts of x2, less what its separator positions
-    hold, plus n_reads - 1 '#' and one '$' (no N-byte x6 copy)."""
-    want = char_counts(coll.x2) - np.bincount(coll.x2[coll.sep], minlength=6)[:6]
-    want[K.SHARP] += coll.n_reads - 1
-    want[K.DOLLAR] += 1
-    return want
-
-
-def check_char_counts(bwt6: np.ndarray, coll: SequenceCollection):
-    """The BWT holds each character as often as the text does."""
-    want = expected_char_counts(coll)
-    got = char_counts(bwt6)
-    assert (got == want).all(), (got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -620,11 +471,15 @@ def build_bwt_ooc(
             _say(f"resuming from checkpoint: stage {state['stage']}"
                  + (f" bucket {state.get('next_bucket')}"
                     if state["stage"] == "B" else ""))
+    # uint32 splitters over c = min(16, k) chars: deep enough to split hot
+    # 8-char buckets under low-complexity skew; only a single k-mer with
+    # > 1/n mass is unsplittable (node groups must stay bucket-local)
     split_c = min(16, k)
     if state is not None:
         splitters = np.asarray(state["splitters"], dtype=np.uint32)
     else:
-        splitters = sample_splitters(coll.x2, nb, split_c)
+        splitters = ops.sample_splitters(
+            coll.x2, nb, split_c, 17, 1 << 16).astype(np.uint32)
     x2p = np.concatenate([coll.x2, np.full(K.TAIL_PAD, K.T, dtype=np.uint8)])
     sep = np.ascontiguousarray(coll.sep, dtype=np.int64)  # sep[-1] == N-1
     # the packed text on the device, for pass A's chunks (each reads C +
@@ -742,9 +597,9 @@ def build_bwt_ooc(
             # disk-spill mode memmaps the output too: the array pages to
             # the spill dir instead of pinning N bytes of RSS. Nothing
             # needs the path once the mapping exists, so the file is
-            # unlinked at once: the mapping keeps its pages (and the
-            # returned result readable) and the disk space goes with
-            # the last reference, so no output outlives the build
+            # unlinked at once: the mapping keeps its pages and the disk
+            # space goes with the last reference, so no output outlives
+            # the build
             bwt_path = os.path.join(ooc.spill_dir, "bwt6.u8")
             bwt6 = np.memmap(bwt_path, dtype=np.uint8, mode="w+", shape=(N,))
             os.unlink(bwt_path)
@@ -939,21 +794,30 @@ def build_bwt_ooc(
     sp_pos, sp6 = sp_string(sp_pos_parts, sp.spec_branch_pos, sep, x2p, N, k)
     del sp_pos_parts
     L = sp_pos.shape[0]
-    rank = _sp_ranks_host(sp6, L, ooc.sp_cap, dev, _say, mesh)
+    rank = sp_ranks(sp6, L, ooc.sp_cap, dev, _say, mesh)
     tracing.mark("SP rank", dev)
     _say(f"SP string: {L} events")
 
     # ---- blue fill: (block base, SP rank, position) order ----
-    n_blue = blue_fill(bwt6, blue_parts, rank, sp_pos, dev)
+    n_blue = 0
+    if blue_parts:
+        b_base, b_pos, b_char = (
+            np.concatenate([p[i] for p in blue_parts]) for i in range(3))
+        coords, chars = blue_order(b_base, b_pos, b_char, rank, sp_pos, dev)
+        bwt6[coords.cpu().numpy()] = chars.cpu().numpy()
+        n_blue = b_base.shape[0]
+        del b_base, b_pos, b_char, coords, chars
     del blue_parts, rank
     tracing.mark("blue fill", dev)
     _say(f"blue entries: {n_blue}")
     tracing.count("sp_events", L)
     tracing.count("blue_entries", n_blue)
 
-    if config.check:
-        check_char_counts(bwt6, coll)
-        tracing.mark("count check (host)", dev)
+    # the words are packed on the host: the tier's device holds at most
+    # a chunk and a bucket
+    result = BwtResult.from_bwt6(
+        torch.from_numpy(bwt6), coll.n_reads,
+        expected_char_counts(coll) if config.check else None)
     if stats is not None:
         stats.update(
             bucket_cap=cap, chunk=C, n_chunks=n_chunks, sp_len=L,
@@ -968,8 +832,8 @@ def build_bwt_ooc(
             },
         )
     if ckpt:
-        # finished: the outputs live on in the mapping of bwt6.u8 and in
-        # memory, so the spill directory is emptied. A crash before the
+        # finished: the result holds the words and the sidecars, so the
+        # spill directory is emptied. A crash before the
         # last unlink leaves a "done" manifest, which the next build
         # ignores like an absent one (_ckpt_load)
         bwt6.flush()
@@ -977,14 +841,4 @@ def build_bwt_ooc(
         for p in [bwt_path, sp_path] + bl_paths + [_manifest_path(ooc.spill_dir)]:
             os.unlink(p)
     _malloc_trim()
-    (sharp,) = np.nonzero(bwt6 == K.SHARP)
-    (dollar,) = np.nonzero(bwt6 == K.DOLLAR)
-    assert dollar.shape[0] == 1, dollar
-    return BwtResult(
-        sharp_pos=sharp.astype(np.int64),
-        dollar_pos=int(dollar[0]),
-        _bwt6=bwt6,
-        _n=N,
-        timings=timings,
-        counters=tracing.current().counters,
-    )
+    return result

@@ -161,6 +161,27 @@ def pack_text(x2: np.ndarray, n_words: int, dev, lead: int = 0) -> torch.Tensor:
     return words
 
 
+def sample_splitters(x2: np.ndarray, n: int, c: int, seed: int,
+                     samples: int) -> np.ndarray:
+    """n-1 equal-depth uint64 splitters over the c-char windows at
+    `samples` random positions of the host codes x2 (the balance role
+    of mySort's cumulative bucket counts, src/mySort.c:104-110). The
+    tiers cut their key ranges with them: the grouped tier on full
+    k-char node keys, the out-of-core and multi-device tiers on
+    c = min(16, k) chars (as uint32 there); same seeds and sample counts
+    as the JAX package's samplers, so that both cut the same ranges."""
+    P = max(1, x2.shape[0] - c)
+    idx = np.random.default_rng(seed).integers(0, P, size=samples)
+    v = np.zeros(samples, dtype=np.uint64)
+    for i in range(c):
+        v = (v << np.uint64(2)) | x2[
+            np.minimum(idx + i, x2.shape[0] - 1)
+        ].astype(np.uint64)
+    v.sort()
+    qs = (np.arange(1, n) * samples) // n
+    return v[qs]
+
+
 def keys_from_pair(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
     """JAX (hi, lo) uint32 key pairs -> the port's int64 keys."""
     key = (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | np.asarray(

@@ -21,7 +21,8 @@ temporaries die before the next:
   SP  the SP string ranked sharded (parallel/sprank.py); blue entries
       fetch their ranks from the block owners (echo pattern)
   S3  blue entries ordered by (node, rank) and the segment assembled
-  stitch: every rank gathers every segment and returns the whole BWT
+  stitch: every rank gathers every segment and finishes the whole BWT
+          (BwtResult.from_bwt6)
 
 Exchanges send only real rows (collectives.route: uneven splits), so
 no key value is reserved as a pad marker. The JAX tier marks pads with
@@ -42,11 +43,10 @@ import torch
 
 from debwt_tpu_torch import constants as K
 from debwt_tpu_torch import ops, tracing
-from debwt_tpu_torch.oocore import sample_splitters
 from debwt_tpu_torch.parallel import collectives as C
 from debwt_tpu_torch.parallel.mesh import Mesh, make_mesh
 from debwt_tpu_torch.parallel.sprank import sp_ranks_sharded
-from debwt_tpu_torch.pipeline import BwtResult, _pow2
+from debwt_tpu_torch.pipeline import BwtResult, _pow2, expected_char_counts
 from debwt_tpu_torch.special import build_special, key_of_window
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 
@@ -344,7 +344,8 @@ def dist_build_bwt(
     sp = build_special(coll, m)
     split_c = min(16, k)
     splitters = torch.from_numpy(
-        sample_splitters(coll.x2, n, split_c).astype(np.int64)).to(dev)
+        ops.sample_splitters(coll.x2, n, split_c, 17, 1 << 16).astype(np.int64)
+    ).to(dev)
 
     def d64(a):
         return torch.from_numpy(np.asarray(a).view(np.int64)).to(dev)
@@ -391,17 +392,9 @@ def dist_build_bwt(
     del seg
     if bwt6.shape[0] != N:
         raise AssertionError(f"stitched BWT has {bwt6.shape[0]} chars, want {N}")
-    sharp = torch.nonzero(bwt6 == K.SHARP)[:, 0].cpu().numpy()
-    dollar = torch.nonzero(bwt6 == K.DOLLAR)[:, 0].cpu().numpy()
-    assert dollar.shape[0] == 1, dollar
-    if config.check:
-        got = torch.bincount(bwt6.to(I64), minlength=6).cpu().numpy()
-        want = np.bincount(coll.x6, minlength=6)
-        assert (got == want).all(), (got, want)
-    packed = ops.pack_2bit_words(bwt6.clamp(max=3))
+    result = BwtResult.from_bwt6(
+        bwt6, coll.n_reads,
+        expected_char_counts(coll) if config.check else None)
+    del bwt6
     tracing.mark("stitch", dev)
-    return BwtResult(
-        sharp_pos=sharp.astype(np.int64), dollar_pos=int(dollar[0]),
-        packed_words=packed, _bwt6=bwt6, _n=N,
-        timings=tracing.current().timings,
-    )
+    return result

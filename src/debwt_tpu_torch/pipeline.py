@@ -1,12 +1,18 @@
-"""Single-device end-to-end pipeline orchestration.
+"""Single-device end-to-end pipeline orchestration, and the result every
+tier returns.
 
 Two device stages (engine.stage_graph / engine.stage_finish) with one
 host sync in between for the dynamic SP/blue counts — the analogue of
 the reference's cross-stage globals (case3num, blueCapacity, ...,
-src/main.c:83-160). Sidecars, packing and conservation counts are
-computed on the device; only the packed words and tiny metadata cross
-back to the host (the full 6-letter BWT is fetched lazily on first
-access).
+src/main.c:83-160).
+
+Every tier (this one, grouped, oocore, parallel.dist) finishes its
+6-letter BWT the same way, with BwtResult.from_bwt6 on the device that
+holds it: the 2-bit words, the '#'/'$' sidecars and, under
+PipelineConfig.check, the character counts. A result holds the words
+on that device and the sidecars on the host; packed() fetches the
+words once in the file's order, and the 6-letter BWT is rebuilt from
+words and sidecars on first access.
 
 Runs on the CUDA card unless the caller passes device="cpu"; with no
 card and no explicit CPU request it raises rather than carry on on the
@@ -17,13 +23,12 @@ from __future__ import annotations
 
 import dataclasses
 import sys
-from typing import Any
 
 import numpy as np
 import torch
 
 from debwt_tpu_torch import constants as K
-from debwt_tpu_torch import engine, tracing
+from debwt_tpu_torch import engine, ops, tracing
 from debwt_tpu_torch.special import SpecialData, build_special
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 
@@ -50,24 +55,58 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class BwtResult:
+    """A finished BWT, as every tier returns it (from_bwt6): the 2-bit
+    words on the device that made them, the '#'/'$' sidecars on the
+    host, and the build's timings and counters."""
+
     sharp_pos: np.ndarray
     dollar_pos: int
-    packed_words: torch.Tensor | None = None  # int32 words (uint32 bits)
-    _bwt6: Any = None              # np.ndarray, tensor or None (words)
-    _n: int = 0
+    packed_words: torch.Tensor     # int32 words (uint32 bits)
+    _n: int                        # BWT length
     # per-stage wall seconds (the reference prints these on every run,
     # src/main.c:86-170; the CLI --timings flag surfaces them) and the
-    # build's counts (tracing.py): both dicts, packed() adds to them
-    timings: Any = None
-    counters: Any = None
+    # build's counts (tracing.py); packed() adds to both
+    timings: dict = dataclasses.field(default_factory=dict)
+    counters: dict = dataclasses.field(default_factory=dict)
+    # the host cache of the bwt6 property
+    _bwt6: np.ndarray | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
+    @classmethod
+    def from_bwt6(cls, bwt6: torch.Tensor, n_reads: int,
+                  want_counts: np.ndarray | None = None) -> BwtResult:
+        """The result of the 6-letter BWT `bwt6` (uint8[N], on any
+        device), made on that device: the words, packed ops.PACK_BLOCK
+        codes at a time, and the sidecars from one nonzero, fetched in
+        one wait. Asserts n_reads - 1 '#' and one '$', and, where
+        want_counts is given (expected_char_counts), that the BWT holds
+        each character that often. Timings and counters are those of
+        the recording open on the thread."""
+        N = bwt6.shape[0]
+        words = torch.empty(-(-N // 16), dtype=torch.int32, device=bwt6.device)
+        ops.pack_codes(bwt6, words)
+
+        def sidecars():
+            p = torch.nonzero(bwt6 >= K.SHARP).squeeze(1)
+            return torch.stack([p, bwt6[p].to(torch.int64)]).cpu()
+
+        pos, char = tracing.wait("finish", sidecars).numpy()
+        sharp, dollar = pos[char == K.SHARP], pos[char == K.DOLLAR]
+        assert sharp.shape[0] == n_reads - 1, (sharp.shape, n_reads)
+        assert dollar.shape[0] == 1, dollar
+        if want_counts is not None:
+            got = tracing.wait("finish", lambda: _char_counts(bwt6)).numpy()
+            assert (got == want_counts).all(), (got, want_counts)
+        rec = tracing.current() or tracing.Recorder()
+        return cls(sharp_pos=sharp, dollar_pos=int(dollar[0]),
+                   packed_words=words, _n=N, timings=rec.timings,
+                   counters=rec.counters)
 
     @property
     def bwt6(self) -> np.ndarray:
-        """The 6-letter BWT on the host: fetched from the device tensor
-        the result holds, or, where it holds only the packed words and
-        the sidecars (the grouped tier), rebuilt from them."""
-        b = self._bwt6
-        if b is None:
+        """The 6-letter BWT on the host, rebuilt from the packed words
+        and the sidecars on first read."""
+        if self._bwt6 is None:
             from debwt_tpu_torch.golden import _UNPACK4
 
             words = self.packed_words.cpu().numpy().view(np.uint32)
@@ -77,10 +116,7 @@ class BwtResult:
             b[self.sharp_pos] = K.SHARP
             b[self.dollar_pos] = K.DOLLAR
             object.__setattr__(self, "_bwt6", b)
-        elif not isinstance(b, np.ndarray):
-            b = b[: self._n].cpu().numpy()
-            object.__setattr__(self, "_bwt6", b)
-        return b
+        return self._bwt6
 
     @property
     def bwt2(self) -> np.ndarray:
@@ -90,25 +126,54 @@ class BwtResult:
 
     def packed(self) -> bytes:
         """The reference's on-disk layout: little-endian u64 words, 32
-        bases/word, first base in bits 63:62. Where the result holds
-        packed words, that order is made on their device and fetched
-        once (counter pack_on_device). Its seconds go to
-        timings["packed"], its fetch to counters."""
-        for field in ("timings", "counters"):
-            if getattr(self, field) is None:
-                object.__setattr__(self, field, {})
+        bases/word, first base in bits 63:62. That order is made on the
+        words' device and fetched once (counter pack_on_device). Its
+        seconds go to timings["packed"], its fetch to counters."""
         with tracing.recording(self.timings, self.counters), \
                 tracing.span("pack", "packed"):
-            if self.packed_words is not None:
-                words = tracing.wait("pack", _file_order(
-                    self.packed_words, (self._n + 31) // 32).cpu)
-                tracing.count("pack_on_device")
-                with tracing.span("pack.assemble"):
-                    return words.numpy().tobytes()
+            words = tracing.wait("pack", _file_order(
+                self.packed_words, (self._n + 31) // 32).cpu)
+            tracing.count("pack_on_device")
             with tracing.span("pack.assemble"):
-                from debwt_tpu_torch.golden import pack_2bit_u64
+                return words.numpy().tobytes()
 
-                return pack_2bit_u64(self.bwt6)
+
+def _char_counts(bwt6: torch.Tensor) -> torch.Tensor:
+    """int64[6]: how often each character stands in the BWT, counted
+    ops.PACK_BLOCK positions at a time (a sum of `bwt6 == c` over all
+    N widened it to 8 bytes a position on the card: 24 GB more reserved
+    at 3 Gbp)."""
+    got = torch.zeros(6, dtype=torch.int64, device=bwt6.device)
+    for s in range(0, bwt6.shape[0], ops.PACK_BLOCK):
+        blk = bwt6[s : s + ops.PACK_BLOCK]
+        for c in range(6):
+            got[c] += (blk == c).sum()
+    return got.cpu()
+
+
+# characters a block of char_counts: at 3 Gbp np.bincount of the whole
+# array would widen it to 24 GB of intp, and a block of 1 MiB keeps the
+# six compare-and-count passes over it in the cache, not in memory
+_COUNT_BLOCK = 1 << 20
+
+
+def char_counts(a: np.ndarray) -> np.ndarray:
+    """int64[6] counts of the codes 0..5 in `a`, a block at a time."""
+    out = np.zeros(6, dtype=np.int64)
+    for s in range(0, a.shape[0], _COUNT_BLOCK):
+        blk = a[s : s + _COUNT_BLOCK]
+        out += [np.count_nonzero(blk == c) for c in range(6)]
+    return out
+
+
+def expected_char_counts(coll: SequenceCollection) -> np.ndarray:
+    """int64[6]: how often the BWT holds each character, as the text
+    (coll.x6) does: the counts of x2, less what its separator positions
+    hold, plus n_reads - 1 '#' and one '$' (no N-byte x6 copy)."""
+    want = char_counts(coll.x2) - np.bincount(coll.x2[coll.sep], minlength=6)[:6]
+    want[K.SHARP] += coll.n_reads - 1
+    want[K.DOLLAR] += 1
+    return want
 
 
 def _file_order(words: torch.Tensor, n64: int) -> torch.Tensor:
@@ -234,31 +299,10 @@ def build_bwt(
     with tracing.span("finish", "stage_finish (+sync)"):
         # eighth-power buckets (like N_cap), not powers of two, to keep
         # the L-sized rank-loop sorts from padding by up to 2x
-        L_cap, B_cap = _bucket(L), _bucket(B)
-        bwt6_d, packed_d, sharp_d, dollar_d, n_sharp_d, counts_d = (
-            engine.stage_finish(
-                x2p_d, ev_key, mi_row, seg_start, r_pos, bwt_char,
-                bwt6_partial, spec_branch_d, N,
-                m, inp.N_cap, L_cap, B_cap, _pow2(n),
-            )
+        bwt6_d = engine.stage_finish(
+            x2p_d, ev_key, mi_row, seg_start, r_pos, bwt_char,
+            bwt6_partial, spec_branch_d, N,
+            m, inp.N_cap, _bucket(L), _bucket(B),
         )
-        sharp = tracing.wait("finish", sharp_d.cpu).numpy().astype(np.int64)
-        dollar, n_sharp = tracing.wait(
-            "finish", lambda: torch.stack([dollar_d, n_sharp_d]).tolist())
-    assert n_sharp == n - 1, (n_sharp, n)
-    assert (sharp[: n - 1] < N).all()
-    assert dollar < N
-    if config.check:
-        counts = tracing.wait("check", counts_d.cpu).numpy()
-        want = np.bincount(coll.x6, minlength=6)
-        assert (counts == want).all(), (counts, want)
-    rec = tracing.current()
-    return BwtResult(
-        sharp_pos=sharp[: n - 1],
-        dollar_pos=dollar,
-        packed_words=packed_d,
-        _bwt6=bwt6_d,
-        _n=N,
-        timings=rec.timings,
-        counters=rec.counters,
-    )
+        return BwtResult.from_bwt6(
+            bwt6_d[:N], n, expected_char_counts(coll) if config.check else None)

@@ -87,9 +87,8 @@ def test_cli_verify_matches_jax_cli(tmp_path, rng, capsys):
 
 
 def test_cli_verify_exits_2_on_a_tampered_result(tmp_path, rng, capsys, monkeypatch):
-    import dataclasses
-
     from debwt_tpu_torch import api
+    from debwt_tpu_torch.pipeline import BwtResult
 
     path = tmp_path / "in.fa"
     _write_fasta(path, _reads(rng, 4))
@@ -99,7 +98,7 @@ def test_cli_verify_exits_2_on_a_tampered_result(tmp_path, rng, capsys, monkeypa
         r = real(coll, config, device=device, verbose=verbose)
         bad = r.bwt6.copy()
         bad[int(np.nonzero(bad < 4)[0][9])] ^= 1
-        return dataclasses.replace(r, packed_words=None, _bwt6=bad)
+        return BwtResult.from_bwt6(torch.from_numpy(bad), coll.n_reads)
 
     monkeypatch.setattr(api, "build", tampered)
     assert torch_main(["-o", str(tmp_path / "o.bwt"), "--device", "cpu",

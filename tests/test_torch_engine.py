@@ -14,7 +14,9 @@ from debwt_tpu_torch import ops
 from debwt_tpu_torch.ops import (
     keys_from_pair, pack_2bit_words_host, pair_from_keys,
 )
-from debwt_tpu_torch.pipeline import _bucket, _pow2, build_bwt, stage_inputs
+from debwt_tpu_torch.pipeline import (
+    BwtResult, _bucket, _char_counts, _pow2, build_bwt, stage_inputs,
+)
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 
 GRAPH_OUT = ("bwt6_partial", "ev_key", "mi_row", "seg_start", "r_pos",
@@ -73,17 +75,19 @@ def test_stage_graph_matches_jax(coll, m):
 @pytest.mark.parametrize("m", [12, 24, 32])
 def test_stage_finish_matches_jax(coll, m):
     """stage_finish of the port and of JAX, each fed the JAX graph
-    outputs: all outputs are final (BWT, packed words, sidecars,
-    counts), so they agree on every row."""
+    outputs, and the port's BWT finished by BwtResult.from_bwt6 and
+    counted by the check's blockwise count: all six JAX outputs are
+    final (BWT, packed words, sidecars, counts), so they agree on every
+    row."""
     inp, j, _t = _graphs(coll, m)
     (bwt6_partial, ev_key, mi_row, seg_start, r_pos, bwt_char, L, B, x2p) = j
     L, B = int(L), int(B)
-    caps = (m, inp.N_cap, _bucket(L), _bucket(B), _pow2(coll.n_reads))
+    caps = (m, inp.N_cap, _bucket(L), _bucket(B))
     want = jengine.stage_finish(
         *(jnp.asarray(a) for a in
           (x2p, ev_key, mi_row, seg_start, r_pos, bwt_char, bwt6_partial,
            inp.spec_branch)),
-        jnp.int32(inp.n_real), *caps,
+        jnp.int32(inp.n_real), *caps, _pow2(coll.n_reads),
     )
     got = tengine.stage_finish(
         *(torch.from_numpy(np.array(a)) for a in
@@ -91,12 +95,18 @@ def test_stage_finish_matches_jax(coll, m):
            bwt6_partial, inp.spec_branch)),
         inp.n_real, *caps,
     )
-    names = ("bwt6", "packed", "sharp", "dollar", "n_sharp", "counts6")
-    for name, a, b in zip(names, want, got):
-        a, b = np.asarray(a), b.numpy()
-        if name == "packed":
-            b = b.view(np.uint32)
-        np.testing.assert_array_equal(b, a, err_msg=name)
+    bwt6, packed, sharp, dollar, n_sharp, counts6 = (np.asarray(a) for a in want)
+    np.testing.assert_array_equal(got.numpy(), bwt6)
+    n = inp.n_real
+    r = BwtResult.from_bwt6(got[:n], coll.n_reads)
+    words = r.packed_words.numpy().view(np.uint32)
+    np.testing.assert_array_equal(words, packed[: words.shape[0]])
+    assert not packed[words.shape[0]:].any()     # the bucket padding
+    assert int(n_sharp) == r.sharp_pos.shape[0] == coll.n_reads - 1
+    np.testing.assert_array_equal(r.sharp_pos, sharp[: int(n_sharp)])
+    assert (sharp[int(n_sharp):] == inp.N_cap).all()
+    assert r.dollar_pos == int(dollar)
+    np.testing.assert_array_equal(_char_counts(got[:n]).numpy(), counts6)
 
 
 @pytest.mark.parametrize(

@@ -6,12 +6,14 @@ files with positions past 2^31 and 2^32 against the JAX writer, the
 blocked 2-bit packers and the blocked character-count check. All data
 is integer: every comparison is exact."""
 
+import dataclasses
 import importlib.util
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from debwt_tpu import grouped as jgrouped
 from debwt_tpu.golden import pack_2bit_u64 as jax_pack
@@ -19,7 +21,8 @@ from debwt_tpu.io.writer import write_bwt as jax_write_bwt
 from debwt_tpu.pipeline import BwtResult as JaxResult
 from debwt_tpu.types import PipelineConfig as JaxConfig
 from debwt_tpu.types import SequenceCollection as JaxCollection
-from debwt_tpu_torch import golden, oocore
+from debwt_tpu_torch import constants as K
+from debwt_tpu_torch import golden, pipeline
 from debwt_tpu_torch.golden import golden_bwt
 from debwt_tpu_torch.grouped import GroupedConfig, build_bwt_grouped
 from debwt_tpu_torch.io import read_bwt, read_sidecars, write_bwt
@@ -86,9 +89,12 @@ def test_sidecars_past_2_32_match_the_jax_writer(tmp_path, sharp, dollar):
     """`.#` and `.$` hold positions past 2^31 and 2^32 as u64: the same
     bytes as the JAX writer's, read back by read_sidecars (read_bwt's
     reader of them) to the same values."""
-    bwt6 = np.random.default_rng(len(sharp)).integers(0, 6, 77, dtype=np.uint8)
+    bwt6 = np.random.default_rng(len(sharp)).integers(0, 4, 77, dtype=np.uint8)
+    bwt6[0] = K.DOLLAR
     sharp = np.asarray(sharp, dtype=np.int64)
-    write_bwt(BwtResult(sharp_pos=sharp, dollar_pos=dollar, _bwt6=bwt6, _n=77),
+    # a one-read result whose sidecars are then set past 2^32
+    r = BwtResult.from_bwt6(torch.from_numpy(bwt6), 1)
+    write_bwt(dataclasses.replace(r, sharp_pos=sharp, dollar_pos=dollar),
               str(tmp_path / "p.bwt"))
     jax_write_bwt(JaxResult(sharp_pos=sharp, dollar_pos=dollar, _bwt6=bwt6, _n=77),
                   str(tmp_path / "j.bwt"))
@@ -126,21 +132,22 @@ def test_packers_match_jax(monkeypatch, n, block):
 
 @pytest.mark.parametrize("block", [7, 64, 1 << 26])
 def test_char_counts_blocked(monkeypatch, block):
-    monkeypatch.setattr(oocore, "_COUNT_BLOCK", block)
+    monkeypatch.setattr(pipeline, "_COUNT_BLOCK", block)
     a = np.random.default_rng(block).integers(0, 6, 1001, dtype=np.uint8)
-    np.testing.assert_array_equal(oocore.char_counts(a),
+    np.testing.assert_array_equal(pipeline.char_counts(a),
                                   np.bincount(a, minlength=6))
 
 
 def test_check_char_counts_holds_the_text():
-    """check_char_counts passes golden's BWT and fails one character off,
-    and counts x6 without its copy."""
+    """The finisher's check (BwtResult.from_bwt6 against
+    expected_char_counts) passes golden's BWT and fails one character
+    off, and expected_char_counts counts x6 without its copy."""
     coll = synth_concat_collection(0.004, 2)
     g = golden_bwt(coll)
-    oocore.check_char_counts(g.bwt6, coll)
-    np.testing.assert_array_equal(oocore.char_counts(g.bwt6),
-                                  np.bincount(coll.x6, minlength=6))
+    want = pipeline.expected_char_counts(coll)
+    BwtResult.from_bwt6(torch.from_numpy(g.bwt6), coll.n_reads, want)
+    np.testing.assert_array_equal(want, np.bincount(coll.x6, minlength=6))
     bad = g.bwt6.copy()
     bad[int(np.nonzero(bad == 0)[0][0])] = 1
     with pytest.raises(AssertionError):
-        oocore.check_char_counts(bad, coll)
+        BwtResult.from_bwt6(torch.from_numpy(bad), coll.n_reads, want)

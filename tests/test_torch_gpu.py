@@ -20,7 +20,7 @@ from debwt_tpu_torch.kernels import seg_or
 from debwt_tpu_torch.kernels import window_keys as wk
 from debwt_tpu_torch.oocore import OocConfig, build_bwt_ooc
 from debwt_tpu_torch.ops import pack_2bit_words, pack_2bit_words_host
-from debwt_tpu_torch.pipeline import _bucket, _pow2, build_bwt
+from debwt_tpu_torch.pipeline import BwtResult, _bucket, _pow2, build_bwt
 from debwt_tpu_torch.special import build_special
 from debwt_tpu_torch.types import PipelineConfig, SequenceCollection
 from debwt_tpu_torch.verify import lf_verify
@@ -437,8 +437,6 @@ def test_api_routes_to_ooc_on_card(cuda, monkeypatch):
 
 @pytest.mark.parametrize("fast_n", [1 << 27, 1], ids=["full_lf", "sampled_occ"])
 def test_lf_verify_on_card_result(cuda, monkeypatch, fast_n):
-    import dataclasses
-
     from debwt_tpu_torch import verify
 
     monkeypatch.setattr(verify, "_FAST_N", fast_n)
@@ -447,7 +445,7 @@ def test_lf_verify_on_card_result(cuda, monkeypatch, fast_n):
     assert lf_verify(r, coll)
     bad = r.bwt6.copy()
     bad[int(np.nonzero(bad < 4)[0][5])] ^= 1
-    assert not lf_verify(dataclasses.replace(r, packed_words=None, _bwt6=bad), coll)
+    assert not lf_verify(BwtResult.from_bwt6(torch.from_numpy(bad), coll.n_reads), coll)
 
 
 @pytest.mark.parametrize("m", [12, 20, 32])

@@ -1,8 +1,9 @@
 """The port's grouped device-resident tier on the CPU (device="cpu",
 toy sizes) against the JAX package's: end to end on the configurations
 of tests/test_grouped.py, stage by stage through the conversion helpers
-of debwt_tpu_torch.grouped, and the back half it borrows from the
-out-of-core tier. All data is integer: every comparison is exact."""
+of debwt_tpu_torch.grouped, and the back half it shares with the
+out-of-core tier (bluesort). All data is integer: every comparison is
+exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +18,7 @@ from debwt_tpu.pipeline import _pow2 as jax_pow2
 from debwt_tpu.special import build_special as jax_build_special
 from debwt_tpu.types import PipelineConfig as JaxConfig
 from debwt_tpu.types import SequenceCollection as JaxCollection
-from debwt_tpu_torch import api, bluesort, grouped, ops
+from debwt_tpu_torch import api, bluesort, engine, grouped, ops, pipeline
 from debwt_tpu_torch import oocore
 from debwt_tpu_torch.golden import golden_bwt
 from debwt_tpu_torch.grouped import (
@@ -415,12 +416,12 @@ def test_ord_conversion_keeps_classes_and_order():
 def test_sample_splitters_match_jax(n, k):
     x2 = np.random.default_rng(n).choice(4, size=5000).astype(np.uint8)
     np.testing.assert_array_equal(
-        grouped.sample_splitters64(x2, n, k, seed=18),
+        ops.sample_splitters(x2, n, k, 18, 1 << 18),
         jgrouped.sample_splitters64(x2, n, k, seed=18),
     )
 
 
-# ---- the back half borrowed from the out-of-core tier ----
+# ---- the back half shared with the out-of-core tier ----
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_blue_coordinates_match_jax(seed):
@@ -431,7 +432,8 @@ def test_blue_coordinates_match_jax(seed):
     b_base = rng.choice(np.array([0, 7, 1 << 33, (1 << 33) + 40]), size=B)
     b_pos = rng.integers(0, sp_pos[-1], size=B).astype(np.int64)
     b_char = rng.integers(0, 6, size=B).astype(np.uint8)
-    got = oocore.blue_coordinates(b_base, b_pos, b_char, rank, sp_pos, "cpu")
+    got = [a.numpy() for a in bluesort.blue_order(
+        b_base, b_pos, b_char, rank, sp_pos, "cpu")]
     want = joocore.blue_coordinates(b_base, b_pos, b_char, rank, sp_pos)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
@@ -445,7 +447,7 @@ def test_sp_ranks_host_match_jax(seed, L):
     sp6 = rng.choice(np.array([0, 0, 0, 1, 4], np.uint8), size=L)
     if L:
         sp6[-1] = 5
-    got = oocore._sp_ranks_host(sp6, L, oocore.SP_CAP, "cpu", print)
+    got = bluesort.sp_ranks(sp6, L, bluesort.SP_CAP, "cpu", print).numpy()
     want = joocore._sp_ranks_host(sp6, L, joocore.OocConfig(), None, print)
     assert got.dtype == want.dtype == np.int32
     np.testing.assert_array_equal(got, want)
@@ -456,12 +458,14 @@ def test_sp_ranks_host_match_jax(seed, L):
 
 @pytest.mark.parametrize("M,L_dyn", [(64, None), (512, 400), (3000, 2900)])
 def test_bluesort_sp_suffix_ranks_match_jax(M, L_dyn):
+    """The engine's rank loop, as bluesort.sp_ranks runs it, against the
+    JAX package's bluesort.sp_suffix_ranks."""
     rng = np.random.default_rng(M)
     sp6 = np.resize(rng.integers(0, 6, size=7).astype(np.uint8), M)
     sp6[rng.random(M) < 0.01] = 5
     live = M if L_dyn is None else L_dyn
     sp6[live:] = 0
-    got = bluesort.sp_suffix_ranks(torch.from_numpy(sp6), L_dyn).numpy()
+    got = engine._suffix_ranks(torch.from_numpy(sp6), live, stage="rank").numpy()
     want = np.asarray(jbluesort.sp_suffix_ranks(
         jnp.asarray(sp6), None if L_dyn is None else jnp.int32(L_dyn)))
     np.testing.assert_array_equal(got[:live], want[:live])
@@ -469,7 +473,7 @@ def test_bluesort_sp_suffix_ranks_match_jax(M, L_dyn):
 
 def test_sp_ranks_host_refuses_sharded_rank():
     with pytest.raises(NotImplementedError, match="multi-device"):
-        oocore._sp_ranks_host(np.zeros(40, np.uint8), 40, 32, "cpu", print)
+        bluesort.sp_ranks(np.zeros(40, np.uint8), 40, 32, "cpu", print)
 
 
 def test_sp_stream_matches_model():
@@ -649,5 +653,5 @@ def test_char_counts_by_blocks(monkeypatch, n):
     are np.bincount's."""
     monkeypatch.setattr(ops, "PACK_BLOCK", 64)
     b = np.random.default_rng(n).integers(0, 6, size=n).astype(np.uint8)
-    got = grouped._char_counts(torch.from_numpy(b)).numpy()
+    got = pipeline._char_counts(torch.from_numpy(b)).numpy()
     np.testing.assert_array_equal(got, np.bincount(b, minlength=6))

@@ -164,7 +164,8 @@ def _empty_buckets(coll, m, fields):
     """Buckets with no row: no device classification for them."""
     k = m - 1
     split_c = min(16, k)
-    spl = oocore.sample_splitters(coll.x2, fields["n_buckets"], split_c)
+    spl = ops.sample_splitters(coll.x2, fields["n_buckets"], split_c, 17,
+                               1 << 16).astype(np.uint32)
     x2p = np.concatenate([coll.x2, np.full(32, 3, np.uint8)])
     keys = ops.window_keys(torch.from_numpy(x2p[: coll.bwt_len + k - 1]), k).numpy()
     *_, counts = oocore._bin_rows_numpy(keys, 0, coll.sep, x2p, coll.bwt_len,
@@ -186,17 +187,22 @@ def test_ooc_matches_the_fused_engine():
 
 def test_ooc_spill_files_gone_afterwards(tmp_path):
     """No file outlives a spilled build, bwt6.u8 included: the output
-    pages to a mapping of a file unlinked as soon as it is mapped, and
-    the result stays readable."""
+    pages to a mapping of a file unlinked as soon as it is mapped, the
+    result keeps only the 2-bit words of it, and stays readable."""
     make, m, fields = CONFIGS["spill"]
     coll = SequenceCollection.from_reads(make())
     d = tmp_path / "sp"
     res = build_bwt_ooc(coll, PipelineConfig(m=m),
                         OocConfig(**fields, spill_dir=str(d)), device="cpu")
     assert os.listdir(d) == []
-    # the output pages to the (unlinked) spill file, not to RSS
-    assert isinstance(res.bwt6, np.memmap)
+    _holds_words_only(res, coll)
     _same_result(res, golden_bwt(coll))
+
+
+def _holds_words_only(res, coll):
+    """The result keeps N / 4 bytes of words, not the N-byte BWT."""
+    assert res._bwt6 is None
+    assert res.packed_words.numel() == -(-coll.bwt_len // 16)
 
 
 @pytest.mark.parametrize("checkpoint", [False, True])
@@ -214,7 +220,7 @@ def test_ooc_spill_dir_empty_after_build(tmp_path, name, n_buckets, checkpoint):
                         OocConfig(**fields, spill_dir=str(d), checkpoint=checkpoint),
                         device="cpu")
     assert os.listdir(d) == []
-    assert isinstance(res.bwt6, np.memmap)
+    _holds_words_only(res, coll)
     _same_result(res, golden_bwt(coll))
     assert (_empty_buckets(coll, m, fields) > 0) == (n_buckets == 64)
 
@@ -512,9 +518,12 @@ def test_row_keys_match_jax_chunk_keys(m):
 @pytest.mark.parametrize("n,c", [(8, 16), (64, 11), (2, 16), (4, 5)])
 def test_sample_splitters_match_jax(n, c):
     x2 = np.random.default_rng(n + c).integers(0, 4, size=7000).astype(np.uint8)
-    got = oocore.sample_splitters(x2, n, c)
-    np.testing.assert_array_equal(got, joocore.sample_splitters(x2, n, c))
-    assert got.dtype == np.uint32 and got.shape == (n - 1,)
+    """The one sampler at the out-of-core tier's seed and sample count
+    gives the JAX tier's uint32 splitters, with no bit past 32."""
+    got = ops.sample_splitters(x2, n, c, 17, 1 << 16)
+    want = joocore.sample_splitters(x2, n, c)
+    assert want.dtype == np.uint32 and got.shape == (n - 1,)
+    np.testing.assert_array_equal(got, want)
 
 
 def _pass_a_inputs(seed, m, nb):
@@ -525,7 +534,8 @@ def _pass_a_inputs(seed, m, nb):
     x2p = np.concatenate([coll.x2, np.full(32, 3, np.uint8)])
     keys = ops.window_keys(torch.from_numpy(x2p[: N + k - 1]), k).numpy()
     split_c = min(16, k)
-    spl = oocore.sample_splitters(coll.x2, nb, split_c)
+    spl = ops.sample_splitters(coll.x2, nb, split_c, 17,
+                               1 << 16).astype(np.uint32)
     return coll, keys, x2p, spl, split_c, k
 
 
@@ -612,7 +622,8 @@ def test_classify_bucket_matches_jax(m, nb):
     x2p = np.concatenate([coll.x2, np.full(32, 3, np.uint8)])
     keys = ops.window_keys(torch.from_numpy(x2p[: N + k - 1]), k).numpy()
     split_c = min(16, k)
-    spl = oocore.sample_splitters(coll.x2, nb, split_c)
+    spl = ops.sample_splitters(coll.x2, nb, split_c, 17,
+                               1 << 16).astype(np.uint32)
     r_key, r_k16, r_pos, counts = oocore._bin_rows_numpy(
         keys, 0, coll.sep, x2p, N, spl, split_c, k)
     sp = build_special(coll, m)

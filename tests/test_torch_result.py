@@ -1,15 +1,16 @@
-"""BwtResult.packed() on the CPU: the <obj> bytes made from packed words
-on their device (each pair of int32 words swapped into the file's u64
-order, fetched once) against golden.pack_2bit_u64, for odd and even
-word counts, partial last words and words past the text; and the host
-pack where a result holds no words (the out-of-core tier's)."""
+"""BwtResult on the CPU: packed(), the <obj> bytes made from packed
+words on their device (each pair of int32 words swapped into the
+file's u64 order, fetched once) against golden.pack_2bit_u64, for odd
+and even word counts, partial last words and words past the text; and
+from_bwt6 on a host BWT (the out-of-core tier's): its words, sidecars
+and count check."""
 
 import numpy as np
 import pytest
 import torch
 
 from debwt_tpu_torch import constants as K
-from debwt_tpu_torch import ops
+from debwt_tpu_torch import ops, tracing
 from debwt_tpu_torch.golden import pack_2bit_u64
 from debwt_tpu_torch.pipeline import BwtResult
 
@@ -44,10 +45,26 @@ def test_packed_from_words_is_the_file(n, pad):
     np.testing.assert_array_equal(r.bwt6, x6)
 
 
-def test_packed_without_words_packs_on_the_host():
+def test_from_bwt6_on_a_host_bwt():
+    """The words, made on the host, give the file's bytes; the sidecars
+    and bwt6 come back; the count check holds the counts and refuses
+    one character off."""
     x6, sharp, dollar = _bwt6(1001, 7)
-    r = BwtResult(sharp_pos=sharp, dollar_pos=dollar, _bwt6=x6, _n=1001)
+    counts = np.bincount(x6, minlength=6)
+    with tracing.recording() as rec:
+        r = BwtResult.from_bwt6(torch.from_numpy(x6), sharp.shape[0] + 1,
+                                counts)
+    assert r.counters is rec.counters and r.timings is rec.timings
+    assert r.packed_words.device.type == "cpu"
     assert r.packed() == pack_2bit_u64(x6)
-    assert "pack_on_device" not in r.counters
-    assert "syncs" not in r.counters and "d2h_bytes" not in r.counters
+    np.testing.assert_array_equal(r.sharp_pos, sharp)
+    assert r.dollar_pos == dollar and isinstance(r.dollar_pos, int)
+    np.testing.assert_array_equal(r.bwt6, x6)
+    # the sidecars' fetch, the counts' and the pack's
+    assert r.counters["syncs"] == 3 and r.counters["pack_on_device"] == 1
     assert "packed" in r.timings
+    bad = counts.copy()
+    bad[0] -= 1
+    bad[1] += 1
+    with pytest.raises(AssertionError):
+        BwtResult.from_bwt6(torch.from_numpy(x6), sharp.shape[0] + 1, bad)

@@ -1,6 +1,6 @@
 """The port's sharded SP ranking (parallel.sprank.sp_ranks_sharded) at
 8 gloo ranks on every input of tests/test_sprank.py: the same suffix
-order as the port's single-device ranker (bluesort.sp_suffix_ranks)
+order as the port's single-device ranker (bluesort.sp_ranks)
 and as the JAX sharded ranking on the 8-device CPU mesh, with all
 ranks distinct. Ranks are order encodings: the comparison is of the
 order they induce."""
@@ -9,12 +9,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 from jax.sharding import NamedSharding, PartitionSpec
 
 from debwt_tpu.parallel.mesh import make_mesh as jax_mesh
 from debwt_tpu.parallel.sprank import sp_ranks_sharded as jax_sharded
-from debwt_tpu_torch.bluesort import sp_suffix_ranks
+from debwt_tpu_torch.bluesort import SP_CAP, sp_ranks
 
 from torch_dist_worker import launch
 
@@ -67,8 +66,6 @@ def test_sharded_ranks_give_the_suffix_order(run, name):
     ranks = np.concatenate([g["rank"] for g in got])[:L]
     assert np.unique(ranks).shape[0] == L
     order = np.argsort(ranks, kind="stable")
-    ext = np.zeros(L + 16, dtype=np.uint8)
-    ext[:L] = sp6
-    single = sp_suffix_ranks(torch.from_numpy(ext), L)[:L].numpy()
+    single = sp_ranks(sp6, L, SP_CAP, "cpu", print).numpy()
     np.testing.assert_array_equal(order, np.argsort(single, kind="stable"))
     np.testing.assert_array_equal(order, np.argsort(_jax_ranks(sp6), kind="stable"))

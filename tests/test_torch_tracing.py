@@ -102,8 +102,8 @@ def test_timings_labels_and_counters(fused_traced):
     c = r.counters
     waits = [e for e in events if e.name.endswith(".wait")]
     assert c["syncs"] == len(waits)
-    # graph L/B, L_dyn, sharp, dollar/n_sharp, the pack fetch
-    assert c["syncs"] == 5 + c["rank_rounds"] and c["rank_rounds"] >= 1
+    # graph L/B, L_dyn, the sidecars, the pack fetch
+    assert c["syncs"] == 4 + c["rank_rounds"] and c["rank_rounds"] >= 1
     assert c["rows"] >= coll.bwt_len
     # the text's codes, once, and the four small padded arrays
     inp = stage_inputs(coll, 32)
@@ -172,7 +172,7 @@ GROUPED_TREE = [
     ("debwt.rank.enqueue", "debwt.grouped.sp"),
     ("debwt.rank.wait", "debwt.grouped.sp"),
     ("debwt.grouped.fill", "debwt.grouped"),
-    ("debwt.grouped.fill.wait", "debwt.grouped.fill"),
+    ("debwt.finish.wait", "debwt.grouped.fill"),
     ("debwt.grouped.stats.wait", "debwt.grouped"),
     ("debwt.pack", None),
     ("debwt.pack.wait", "debwt.pack"),
@@ -257,8 +257,8 @@ def test_fused_path_never_synchronizes(monkeypatch):
 
 def test_the_check_fetch_is_a_wait():
     r = build_bwt(_coll(2), PipelineConfig(m=32, check=True), device=CPU)
-    # graph L/B, L_dyn, sharp, dollar/n_sharp, the counts
-    assert r.counters["syncs"] == 5 + r.counters["rank_rounds"]
+    # graph L/B, L_dyn, the sidecars, the counts
+    assert r.counters["syncs"] == 4 + r.counters["rank_rounds"]
 
 
 def _fasta(path, coll):

@@ -285,12 +285,14 @@ def case_cli(mesh, case):
     has one character flipped on every rank. Returns the exit code and
     what the CLI wrote to stderr."""
     import contextlib
-    import dataclasses
     import io
     import tempfile
 
+    import torch
+
     from debwt_tpu_torch import api
     from debwt_tpu_torch.cli import main as cli_main
+    from debwt_tpu_torch.pipeline import BwtResult
 
     real = api.build
 
@@ -298,7 +300,7 @@ def case_cli(mesh, case):
         r = real(*a, **kw)
         bad = r.bwt6.copy()
         bad[int(np.nonzero(bad < 4)[0][9])] ^= 1
-        return dataclasses.replace(r, packed_words=None, _bwt6=bad)
+        return BwtResult.from_bwt6(torch.from_numpy(bad), r.sharp_pos.shape[0] + 1)
 
     err = io.StringIO()
     with tempfile.TemporaryDirectory() as d:
