@@ -1504,7 +1504,7 @@ def phase_ooc_rehearsal(dev, rows: dict):
 
     import torch
 
-    from debwt_tpu_torch import api, oocore, special
+    from debwt_tpu_torch import api, oocore
     from debwt_tpu_torch.synth import synth_concat_collection
     from debwt_tpu_torch.types import PipelineConfig
 
@@ -1535,7 +1535,6 @@ def phase_ooc_rehearsal(dev, rows: dict):
         save_collection(coll, work / "coll")
         t_save = time.perf_counter() - t0
         del coll
-        special._BUF_CACHE.clear()
         oocore._malloc_trim()
         torch.cuda.empty_cache()
         parent = {"rss_bytes": RssPeak._now(),

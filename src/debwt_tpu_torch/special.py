@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 
 from debwt_tpu_torch import constants as K
+from debwt_tpu_torch import tracing
 from debwt_tpu_torch.types import SequenceCollection
 
 
@@ -43,41 +44,51 @@ class SpecialData:
     head_rank: np.ndarray          # int64[n] true-order ranks of head suffixes
 
 
-def key_of_window(x2p: np.ndarray, pos: np.ndarray, k: int) -> np.ndarray:
+def key_of_window(x2: np.ndarray, pos: np.ndarray, k: int) -> np.ndarray:
     """uint64 right-aligned 2-bit keys of k-char windows at `pos`."""
     key = np.zeros(pos.shape[0], dtype=np.uint64)
     for i in range(k):
-        key = (key << np.uint64(2)) | x2p[pos + i].astype(np.uint64)
+        key = (key << np.uint64(2)) | x2[pos + i].astype(np.uint64)
     return key
 
 
-def rank_suffixes(x6p: np.ndarray, positions: np.ndarray, limit: int) -> np.ndarray:
+CH = 21  # 3-bit characters in one uint64 chunk of rank_suffixes
+
+
+def rank_suffixes(coll: SequenceCollection, positions: np.ndarray) -> np.ndarray:
     """True lexicographic ranks of the suffixes starting at `positions`
     (ties impossible: every suffix contains the unique '$').
 
     Iterative refinement: compare 21-char (3-bit) chunks at increasing
     offsets, re-sorting only tied groups. Depth is bounded by the
     longest common prefix among the candidate suffixes; genome
-    collections resolve in a few rounds.
+    collections resolve in a few rounds. A chunk is read from the 2-bit
+    text with its one possible separator (reads are longer than 21)
+    restored to '#' or '$'; reads past the end see '$', the last
+    character.
     """
     m = positions.shape[0]
     if m <= 1:
         return np.zeros(m, dtype=np.int64)
-    CH = 21
+    x2, sep = coll.x2, coll.sep
+    last = coll.bwt_len - 1
+    cols = np.arange(CH)
+    shifts = np.uint64(3) * (CH - 1 - cols).astype(np.uint64)
 
     def chunk(off):
         idx = positions + off
-        key = np.zeros(m, dtype=np.uint64)
-        for i in range(CH):
-            j = np.minimum(idx + i, limit - 1)
-            key = (key << np.uint64(3)) | x6p[j].astype(np.uint64)
-        return key
+        s = sep[np.minimum(np.searchsorted(sep, idx), sep.shape[0] - 1)]
+        s_chr = np.where(s == last, K.DOLLAR, K.SHARP)
+        j = np.minimum(idx[:, None] + cols, last)
+        c = np.where(j == s[:, None], s_chr[:, None], x2[j])
+        return (c.astype(np.uint64) << shifts).sum(axis=1, dtype=np.uint64)
 
     rank = np.zeros(m, dtype=np.int64)
     tied = np.ones(m, dtype=bool)
     off = 0
-    while tied.any() and off < limit:
+    while tied.any() and off <= last:
         key = chunk(off)
+        tracing.count("special_text_bytes", CH * m)
         order = np.lexsort((key, rank))
         r_o, k_o = rank[order], key[order]
         new = np.ones(m, dtype=bool)
@@ -90,45 +101,33 @@ def rank_suffixes(x6p: np.ndarray, positions: np.ndarray, limit: int) -> np.ndar
     return rank
 
 
-# reusable padded-text buffers: repeated builds (bench reps, batch
-# jobs) pay the ~N-byte alloc + page-fault cost once instead of per
-# call (profiled: the special module's warm cost is allocator noise,
-# not compute). Bounded so a single huge build can't pin tens of GB.
-_BUF_CACHE: dict = {}
-# covers the grouped tier's full span (N < 3.75e9); the ooc tier calls
-# build_special once per multi-hour run, so pinning is pointless there
-# and 30 Gbp inputs skip the cache entirely
-_BUF_CACHE_MAX = 4_300_000_000
-
-
-def _cached_buf(name: str, size: int) -> np.ndarray:
-    if size > _BUF_CACHE_MAX:
-        return np.empty(size, dtype=np.uint8)
-    buf = _BUF_CACHE.get(name)
-    if buf is None or buf.shape[0] < size:
-        buf = np.empty(size, dtype=np.uint8)
-        _BUF_CACHE[name] = buf
-    return buf[:size]
-
-
 def build_special(coll: SequenceCollection, m: int) -> SpecialData:
+    """The special module of `coll` at (k+1)-mer length m.
+
+    It reads O(n_reads * k) bytes of the text, never a copy of it, and
+    counts them in counters["special_text_bytes"]: n (2k + 1) for the
+    separator windows and their BWT characters, 2 n k for the head and
+    tail k-mers, and 21 n a round of the head-suffix ranking (none for
+    one read).
+    """
     k = m - 1
-    sep = coll.sep
+    x2, sep = coll.x2, coll.sep
     n = coll.n_reads
     N = coll.bwt_len
-    # build the two padded views with exactly two (cached) buffers (the
-    # x6 property would copy a third time; at 250 Mbp each full-text
-    # alloc+copy costs ~0.3-0.5 s of host critical path per build)
-    x2p = _cached_buf("x2p", N + K.TAIL_PAD)
-    x2p[:N] = coll.x2
-    x2p[N:] = K.T
-    x6p = _cached_buf("x6p", N + K.TAIL_PAD)
-    x6p[:] = x2p
-    x6p[sep[:-1]] = K.SHARP
-    x6p[sep[-1]] = K.DOLLAR
 
     heads = np.concatenate([[0], sep[:-1] + 1]).astype(np.int64)
-    head_rank = rank_suffixes(x6p, heads, N)
+    head_rank = rank_suffixes(coll, heads)
+
+    # the 2k + 1 characters around each separator, positions
+    # s - k .. s + k: a read is longer than 32, so s is the only
+    # separator among them. Past the end of the text they read the
+    # last separator's stored 'T', as the reference pads the text
+    # (src/collect#$.c:87-90).
+    span = np.arange(-k, k + 1, dtype=np.int64)
+    seg = x2[np.minimum(sep[:, None] + span[None, :], N - 1)]
+    seg[:-1, k] = K.SHARP
+    seg[-1, k] = K.DOLLAR
+    tracing.count("special_text_bytes", seg.size + 2 * n * k)
 
     # special positions grouped per separator: p in [s-k+1, s]
     offs = np.arange(-k + 1, 1, dtype=np.int64)
@@ -136,8 +135,10 @@ def build_special(coll: SequenceCollection, m: int) -> SpecialData:
     read_of = np.repeat(np.arange(n, dtype=np.int64), k)
     d = np.repeat(sep, k) - spec_pos  # distance to the separator, in [0, k-1]
 
-    # 6-letter windows (k+1 cols: branch char at p+k included)
-    W = x6p[spec_pos[:, None] + np.arange(k + 1)[None, :]]
+    # 6-letter windows (k+1 cols: branch char at p+k included), the
+    # one at p = s-k+1+j being seg's columns 1+j .. 1+j+k
+    W = np.lib.stride_tricks.sliding_window_view(
+        seg[:, 1:], k + 1, axis=1).reshape(n * k, k + 1)
 
     # continuation rank: '#' specials continue into read (read_of + 1);
     # '$' specials (last read) have pairwise-distinct windows already.
@@ -158,7 +159,8 @@ def build_special(coll: SequenceCollection, m: int) -> SpecialData:
     )
     spec_tfill = tfill_all[order]
 
-    spec_bwt6 = x6p[spec_pos_sorted - 1]  # p-1 never a separator
+    # the character before p, seg's column j: never a separator
+    spec_bwt6 = seg[:, :k].reshape(-1)[order]
 
     # special-branch positions: groups of equal 6-letter windows with
     # >= 2 distinct branch chars (divideKmer, src/collect#$.c:540-601)
@@ -176,8 +178,9 @@ def build_special(coll: SequenceCollection, m: int) -> SpecialData:
     g_distinct = np.bincount(gid_p[newp], minlength=n_g)
     spec_branch_pos = np.sort(spec_pos[grp_sort[(g_distinct >= 2)[gid]]])
 
-    head_keys = np.unique(key_of_window(x2p, heads, k))
-    tail_keys = np.sort(key_of_window(x2p, sep - k, k))
+    # head and tail k-mers lie inside their reads
+    head_keys = np.unique(key_of_window(x2, heads, k))
+    tail_keys = np.sort(key_of_window(x2, sep - k, k))
 
     return SpecialData(
         spec_pos_sorted=spec_pos_sorted,
