@@ -237,34 +237,40 @@ def stage_finish(
 ):
     """The finished 6-letter BWT (uint8[N], the rows past n_real 0):
     the SP stream ranked by prefix tripling, the blue entries sorted by
-    (node, rank) and scattered into bwt6_partial."""
+    (node, rank) and scattered into bwt6_partial. Its three parts are
+    the spans finish.sp (the SP sort and the wait for its length),
+    finish.rank (_suffix_ranks) and finish.blue (the blue sorts and the
+    scatter); none of them adds a wait."""
     dev = x2p.device
     k = m - 1
 
-    with tracing.span("finish.enqueue"):
-        # SP stream: node events arrive as ready-made pos<<3|char keys from
-        # stage_graph; special-branch events get the same packing here —
-        # their SP char is the raw text char k ahead (special positions have
-        # dist < k, so the separator-tail branch never applies). One sort
-        # yields the SP stream in text order with the char in the low bits.
-        brv = spec_branch_pos < n_real
-        br = torch.where(brv, spec_branch_pos, N).to(I64)
-        br_c = x2p[(br + k).clamp(max=x2p.shape[0] - 1)].to(I64)
-        br_key = torch.where(brv, (br << 3) | br_c, SENT)
-        allk = torch.cat([ev_key, br_key])
-        if allk.shape[0] < L_cap:        # caps can exceed R on tiny inputs
-            allk = torch.cat([
-                allk, torch.full((L_cap - allk.shape[0],), SENT, dtype=I64,
-                                 device=dev)
-            ])
-        key_s = torch.sort(allk).values[:L_cap]
-        sp_pos = (key_s >> 3).to(I32)    # SENT>>3 = 2^29-1 >= any cap
-        sp6 = torch.where(sp_pos < N, (key_s & 7).to(U8), 0)
-    # suffix ranks over the true length (end of string sorts below every
-    # char), so the rank loop ends in O(log max-tie) rounds
-    L_dyn = tracing.wait("finish", lambda: int((sp_pos < N).sum()))
-    rank = _suffix_ranks(sp6, L_dyn)
-    with tracing.span("finish.enqueue"):
+    with tracing.span("finish.sp"):
+        with tracing.span("finish.enqueue"):
+            # SP stream: node events arrive as ready-made pos<<3|char keys
+            # from stage_graph; special-branch events get the same packing
+            # here — their SP char is the raw text char k ahead (special
+            # positions have dist < k, so the separator-tail branch never
+            # applies). One sort yields the SP stream in text order with
+            # the char in the low bits.
+            brv = spec_branch_pos < n_real
+            br = torch.where(brv, spec_branch_pos, N).to(I64)
+            br_c = x2p[(br + k).clamp(max=x2p.shape[0] - 1)].to(I64)
+            br_key = torch.where(brv, (br << 3) | br_c, SENT)
+            allk = torch.cat([ev_key, br_key])
+            if allk.shape[0] < L_cap:    # caps can exceed R on tiny inputs
+                allk = torch.cat([
+                    allk, torch.full((L_cap - allk.shape[0],), SENT,
+                                     dtype=I64, device=dev)
+                ])
+            key_s = torch.sort(allk).values[:L_cap]
+            sp_pos = (key_s >> 3).to(I32)    # SENT>>3 = 2^29-1 >= any cap
+            sp6 = torch.where(sp_pos < N, (key_s & 7).to(U8), 0)
+        # suffix ranks over the true length (end of string sorts below
+        # every char), so the rank loop ends in O(log max-tie) rounds
+        L_dyn = tracing.wait("finish", lambda: int((sp_pos < N).sum()))
+    with tracing.span("finish.rank"):
+        rank = _suffix_ranks(sp6, L_dyn)
+    with tracing.span("finish.blue"), tracing.span("finish.enqueue"):
         # blue entries straight from row space. Pad rows share key N and
         # carry payload N, so their order is inert.
         bk = torch.where(mi_row, r_pos, N)
@@ -320,7 +326,13 @@ def _suffix_ranks(sp6: torch.Tensor, L_dyn: int,
     (i >= L_dyn) get distinct negative ranks so they never stall the
     all-distinct exit, and every lookahead past L_dyn reads -1, so
     rounds scale with the longest repeated substring of the SP string,
-    not with the capacity.
+    not with the capacity: after r rounds prefixes of 10 * 3^r events
+    are compared, so a repeat of length l takes about log3(l / 10) + 1
+    rounds. One genome with exact repeats (the benchmark's dmel_140:
+    about 44 k events in 140 Mbp) takes 2; 50 near-identical genomes
+    (salmonella50_243: 10.9 M events, 4.5% of 243 Mbp, whose copies
+    repeat long runs of branch passages) take 4 or 5, each a sort of
+    the whole SP string and one wait.
     """
     M = sp6.shape[0]
     dev = sp6.device

@@ -60,12 +60,16 @@ def rank_suffixes(coll: SequenceCollection, positions: np.ndarray) -> np.ndarray
     (ties impossible: every suffix contains the unique '$').
 
     Iterative refinement: compare 21-char (3-bit) chunks at increasing
-    offsets, re-sorting only tied groups. Depth is bounded by the
-    longest common prefix among the candidate suffixes; genome
-    collections resolve in a few rounds. A chunk is read from the 2-bit
-    text with its one possible separator (reads are longer than 21)
-    restored to '#' or '$'; reads past the end see '$', the last
-    character.
+    offsets, re-sorting only tied groups. The depth is set by the
+    longest common prefix among the candidate suffixes: one round per
+    21 characters of it, plus one. A single genome resolves at once;
+    near-identical genomes that start alike do not: the benchmark's 50
+    Salmonella-sized genomes (4.86 Mbp each, 0.1% substitutions against
+    one base) share heads about 4 kb long and take about 150 to 200
+    rounds (195 at full size, 146 and 155 at 1 Mbp), about 70 us of
+    host work each at n = 50. A chunk is read from the 2-bit text with
+    its one possible separator (reads are longer than 21) restored to
+    '#' or '$'; reads past the end see '$', the last character.
     """
     m = positions.shape[0]
     if m <= 1:

@@ -2,7 +2,8 @@
 fused build, of packed() and of a CLI job under torch.profiler, the
 timings labels, the counters against the spans and against the grouped
 tier's counts, and that tracing changes neither the bytes nor the
-device syncs."""
+device syncs; on near-identical genomes, the fused finishing stage's
+three parts and its rank rounds."""
 
 import numpy as np
 import pytest
@@ -10,6 +11,7 @@ import torch
 
 from debwt_tpu_torch import api, tracing
 from debwt_tpu_torch.cli import main as torch_main
+from debwt_tpu_torch.golden import golden_bwt
 from debwt_tpu_torch.grouped import GroupedConfig, build_bwt_grouped
 from debwt_tpu_torch.oocore import OocConfig, build_bwt_ooc
 from debwt_tpu_torch.pipeline import build_bwt, stage_inputs
@@ -62,6 +64,7 @@ def fused_traced():
     return coll, r, packed, events
 
 
+# (span, the span it lies in): directly, but where DIRECT names others
 FUSED_TREE = [
     ("debwt.build", None),
     ("debwt.route", "debwt.build"),
@@ -73,25 +76,50 @@ FUSED_TREE = [
     ("debwt.graph.enqueue", "debwt.graph"),
     ("debwt.graph.wait", "debwt.graph"),
     ("debwt.finish", "debwt.fused"),
+    ("debwt.finish.sp", "debwt.finish"),
+    ("debwt.finish.rank", "debwt.finish"),
+    ("debwt.finish.blue", "debwt.finish"),
     ("debwt.finish.enqueue", "debwt.finish"),
     ("debwt.finish.wait", "debwt.finish"),
     ("debwt.pack", None),
     ("debwt.pack.wait", "debwt.pack"),
     ("debwt.pack.assemble", "debwt.pack"),
 ]
+# the finishing stage's launches and waits sit in its three parts: the
+# SP sort's wait for its length, a rank round's, and the sidecars' in
+# debwt.finish itself
+DIRECT = {
+    "debwt.finish.enqueue": {"debwt.finish.sp", "debwt.finish.rank",
+                             "debwt.finish.blue"},
+    "debwt.finish.wait": {"debwt.finish.sp", "debwt.finish.rank",
+                          "debwt.finish"},
+}
+
+
+def _ancestors(e) -> set:
+    """The names of every debwt. span around e."""
+    out, p = set(), e.cpu_parent
+    while p is not None:
+        if p.name.startswith("debwt."):
+            out.add(p.name)
+        p = p.cpu_parent
+    return out
 
 
 @pytest.mark.parametrize("name,parent", FUSED_TREE)
 def test_fused_build_span_tree(fused_traced, name, parent):
     """Each span of the fused route sits inside its parent, and only
-    there."""
-    tree = _tree(fused_traced[3])
-    assert (name, parent) in tree
-    assert {p for n, p in tree if n == name} == {parent}
+    there: directly, or through the parts DIRECT names."""
+    events = fused_traced[3]
+    tree = _tree(events)
+    assert {p for n, p in tree if n == name} == DIRECT.get(name, {parent})
+    assert parent is None or all(
+        parent in _ancestors(e) for e in events if e.name == name)
 
 
 def test_fused_build_opens_no_other_span(fused_traced):
-    assert _tree(fused_traced[3]) == set(FUSED_TREE)
+    assert _tree(fused_traced[3]) == {
+        (n, q) for n, p in FUSED_TREE for q in DIRECT.get(n, {p})}
 
 
 def test_timings_labels_and_counters(fused_traced):
@@ -129,6 +157,77 @@ def test_graph_children_cover_the_graph(fused_traced):
         assert a.time_range.end <= b.time_range.start
     assert graph.time_range.start <= kids[0].time_range.start
     assert kids[-1].time_range.end <= graph.time_range.end
+
+
+def _genomes(seed, n=20, length=2000, rate=0.005):
+    """n copies of one random genome, each but the first with its own
+    point substitutions at `rate`: an SP string with long repeats."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, size=length).astype(np.uint8)
+    genomes = [base]
+    for _ in range(n - 1):
+        g = base.copy()
+        idx = rng.choice(length, size=int(length * rate), replace=False)
+        g[idx] = (g[idx] + rng.integers(1, 4, size=idx.shape[0])) % 4
+        genomes.append(g)
+    return SequenceCollection.from_concat(
+        np.concatenate(genomes), np.full(n, length, dtype=np.int64))
+
+
+@pytest.fixture(scope="module", params=[0, 1, 2])
+def genomes_traced(request):
+    coll = _genomes(request.param)
+
+    def run():
+        r = api.build(coll, PipelineConfig(m=32), device=CPU)
+        return r, r.packed()
+
+    (r, packed), events = _profiled(run)
+    return coll, r, packed, events
+
+
+def test_genome_collection_is_golden(genomes_traced):
+    coll, r, packed, _ = genomes_traced
+    g = golden_bwt(coll)
+    assert packed == g.packed()
+    np.testing.assert_array_equal(r.sharp_pos, g.sharp_pos)
+    assert r.dollar_pos == g.dollar_pos
+
+
+FINISH_PARTS = ["debwt.finish.sp", "debwt.finish.rank", "debwt.finish.blue"]
+
+
+def test_finish_parts_tile_in_order(genomes_traced):
+    """debwt.finish.sp, .rank and .blue sit in debwt.finish, once each,
+    in that order and apart."""
+    parts = sorted((e for e in genomes_traced[3] if e.name in FINISH_PARTS),
+                   key=lambda e: e.time_range.start)
+    assert [e.name for e in parts] == FINISH_PARTS
+    assert {_parent(e) for e in parts} == {"debwt.finish"}
+    for a, b in zip(parts, parts[1:]):
+        assert a.time_range.end <= b.time_range.start
+
+
+def test_rank_rounds_are_the_waits_in_rank(genomes_traced):
+    """One wait a rank round, all inside debwt.finish.rank, and more
+    than one round on near-identical genomes; the SP sort waits once,
+    the blue fill never."""
+    _, r, _, events = genomes_traced
+    waits = [e for e in events if e.name.endswith(".wait")]
+    inside = {p: sum(p in _ancestors(e) for e in waits)
+              for p in FINISH_PARTS}
+    assert inside["debwt.finish.rank"] == r.counters["rank_rounds"] > 1
+    assert inside["debwt.finish.sp"] == 1
+    assert inside["debwt.finish.blue"] == 0
+
+
+def test_finish_spans_add_no_sync(genomes_traced):
+    """graph L/B, L_dyn, a wait a rank round, the sidecars, the pack
+    fetch, each a wait span: the three parts add no sync."""
+    _, r, _, events = genomes_traced
+    c = r.counters
+    assert c["syncs"] == 4 + c["rank_rounds"]
+    assert c["syncs"] == sum(e.name.endswith(".wait") for e in events)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
