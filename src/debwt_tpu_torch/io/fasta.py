@@ -14,9 +14,13 @@ reader:
                    private trans table (src/mySort.c:33); other IUPAC
                    codes are still rejected
 
-Parsing is vectorized NumPy over the raw bytes (no per-line Python
-loop); read_fasta parses FASTA under reject and to-g in the native
-parser (io/native.py, csrc/fasta_parser.cpp).
+FASTA goes through the native parser (io/native.py,
+csrc/fasta_parser.cpp): read_fasta's whole-file parse under reject and
+to-g, and read_collection's streaming scan under every policy (random
+draws its bases here, in NumPy). FASTQ, read_reads and the random
+policy of read_fasta are vectorized NumPy over the raw bytes (no
+per-line Python loop); so are the plain versions the tests hold the
+native paths against.
 
 A record whose header holds no name is called read<record index> on
 every path. The JAX package's native path numbers such a record by its
@@ -28,10 +32,13 @@ from __future__ import annotations
 
 import enum
 import gzip
+import mmap
+import os
 from typing import List, Tuple
 
 import numpy as np
 
+from debwt_tpu_torch import constants as K
 from debwt_tpu_torch import tracing
 
 # IUPAC ambiguity codes -> compatible base sets (transferN randTable)
@@ -90,16 +97,127 @@ def read_collection(
     chunk_bytes: int = 1 << 26,
 ):
     """Stream a FASTA/FASTQ file (optionally .gz) straight into a
-    SequenceCollection: chunked reading (no whole-file slurp, gz
-    decompressed incrementally), vectorized per-chunk parsing, and no
-    per-read Python objects — peak memory is the 2-bit-codes output
-    plus one chunk, not 2x the raw file.
+    SequenceCollection, with no per-read Python objects: peak memory is
+    the collection's x2 plus one chunk, not 2x the raw file.
+
+    FASTA takes one native pass (io.native.FastaScan): each chunk of
+    `chunk_bytes` is read into one reused buffer, behind the carry (the
+    partial line the last chunk ended in), and its whole lines are
+    written as codes and separators straight into x2, preallocated at
+    the file's size + 1 (grown as it fills for .gz). Under the random
+    policy the IUPAC bytes of the r-th region are drawn here with seed +
+    r, in _encode's order, so every path gives the same bytes. FASTQ
+    goes through the NumPy parser, _stream_reads, and from_concat
+    (_read_collection_numpy, also the plain version of the FASTA pass).
+    The counters ingest_native_bytes and ingest_numpy_bytes count the
+    raw bytes each path read.
 
     The reference's analogue is kseq.h's buffered streaming
     (src/kseq.h:36-90) feeding collect's two-pass packer
-    (src/collect#$.c:37-90); here one pass suffices because code
-    chunks are accumulated and concatenated once.
+    (src/collect#$.c:37-90); here one pass suffices because x2 is
+    sized from the file before the first byte is encoded.
+
+    Spans a chunk: ingest.read (the carry moved to the buffer's front,
+    readinto), ingest.parse (the cut after the last newline),
+    ingest.encode (the native scan and the random draws); once:
+    ingest.join (the last record closed, the trim and the read-length
+    check).
     """
+    from debwt_tpu_torch.io.native import FastaScan
+    from debwt_tpu_torch.types import SequenceCollection
+
+    if isinstance(n_policy, str):
+        n_policy = NPolicy(n_policy)
+    gz = str(path).endswith(".gz")
+    opener = gzip.open if gz else open
+    # codes plus separators never outnumber the file's bytes (+ 1 for a
+    # last line with no newline); for .gz a guess, grown as it fills
+    cap = os.path.getsize(path) * (4 if gz else 1) + 1
+    scan = None
+    region_i = 0
+    # anonymous memory: a page is touched only when a read fills it
+    buf = mmap.mmap(-1, chunk_bytes)
+    carry = cut = n = 0
+    with opener(path, "rb") as f:
+        while True:
+            with tracing.span("ingest.read"):
+                carry = n - cut
+                if carry + chunk_bytes > len(buf):   # a line longer than a chunk
+                    grown = mmap.mmap(-1, carry + chunk_bytes)
+                    grown[:carry] = buf[cut:n]
+                    buf = grown
+                else:
+                    buf[:carry] = buf[cut:n]
+                got = _read_into(f, memoryview(buf)[carry : carry + chunk_bytes])
+                n = carry + got
+            if scan is None:
+                if got == 0:
+                    raise ValueError(f"empty input: {path}")
+                if buf[:1] == b"@":
+                    break
+                if buf[:1] != b">":
+                    raise ValueError(
+                        f"{path}: not FASTA/FASTQ (starts with "
+                        f"{buf[:1]!r})"
+                    )
+                scan = FastaScan(n_policy.value, cap)
+            tracing.count("ingest_native_bytes", got)
+            with tracing.span("ingest.parse"):
+                if got == 0 and carry:   # a last line with no newline
+                    buf[n] = ord("\n")
+                    n += 1
+                cut = buf.rfind(b"\n", 0, n) + 1
+            if cut:
+                with tracing.span("ingest.encode"):
+                    start = scan.cursor
+                    if scan.scan(np.frombuffer(buf, np.uint8, cut)):
+                        _draw_iupac(scan.x2[start : scan.cursor],
+                                    seed + region_i)
+                region_i += 1
+            if got == 0:
+                break
+    if scan is None:
+        return _read_collection_numpy(path, n_policy, seed, chunk_bytes)
+    with tracing.span("ingest.join"):
+        scan.scan(np.zeros(0, np.uint8), last=True)
+        x2, sep = scan.x2[: scan.cursor], scan.sep[: scan.n_sep]
+        shortest = int((np.diff(sep, prepend=-1) - 1).min())
+        if shortest < K.MIN_READ_LEN:
+            raise ValueError(
+                f"read length {shortest} <= 32; the reference "
+                "enforces length > 32 (src/collect#$.c:41-45)"
+            )
+        return SequenceCollection(x2=x2, sep=sep)
+
+
+def _read_into(f, view: memoryview) -> int:
+    """Bytes read into `view`: all of it, unless the file ends first."""
+    got = 0
+    while got < len(view):
+        k = f.readinto(view[got:])
+        if not k:
+            break
+        got += k
+    return got
+
+
+def _draw_iupac(seg: np.ndarray, seed: int) -> None:
+    """Replaces the IUPAC letters the native scan left in one region's
+    codes by bases drawn as _encode draws them: a generator seeded with
+    `seed`, the codes in IUPAC's order, positions ascending in each."""
+    rng = np.random.default_rng(seed)
+    at = np.flatnonzero(seg > 3)
+    letters = seg[at]
+    for code_char, bases in IUPAC.items():
+        mask = at[letters == ord(code_char)]
+        if mask.size:
+            pool = np.frombuffer(bases.encode(), dtype=np.uint8)
+            seg[mask] = _CODE[pool[rng.integers(0, len(bases), size=mask.size)]]
+
+
+def _read_collection_numpy(path, n_policy, seed, chunk_bytes):
+    """read_collection in NumPy: _stream_reads, then from_concat. The
+    path of FASTQ input, and the plain version of the native pass."""
     from debwt_tpu_torch.types import SequenceCollection
 
     codes, lengths, _ = _stream_reads(path, n_policy, seed, chunk_bytes, False)
@@ -182,6 +300,7 @@ def _stream_reads(path, n_policy, seed, chunk_bytes, with_names):
                 data = f.read(chunk_bytes)
                 if not data:
                     break
+                tracing.count("ingest_numpy_bytes", len(data))
                 buf = carry + data
                 if fmt is None:
                     if buf[:1] == b"@":
@@ -291,26 +410,33 @@ def _span_mask(buf: np.ndarray, starts: np.ndarray, ends: np.ndarray):
     return keep
 
 
+def _bad_char(n_policy: NPolicy, ch: str) -> ValueError:
+    """The error of a sequence character `ch` the policy cannot encode."""
+    if n_policy is NPolicy.REJECT:
+        return ValueError(
+            f"non-ACGT character {ch!r}; rerun with an N-policy "
+            "('random' for the transferN behavior, 'to-g' for the "
+            "mySort quirk)"
+        )
+    if n_policy is NPolicy.TO_G:
+        return ValueError(f"IUPAC code {ch!r} not covered by to-g policy")
+    return ValueError(f"unrecognized sequence character {ch!r}")
+
+
 def _encode(seq_bytes: np.ndarray, n_policy: NPolicy, seed: int) -> np.ndarray:
     codes = _CODE[seq_bytes]
     bad = codes == 255
     if not bad.any():
         return codes
     if n_policy is NPolicy.REJECT:
-        ch = chr(int(seq_bytes[np.argmax(bad)]))
-        raise ValueError(
-            f"non-ACGT character {ch!r}; rerun with an N-policy "
-            "('random' for the transferN behavior, 'to-g' for the "
-            "mySort quirk)"
-        )
+        raise _bad_char(n_policy, chr(int(seq_bytes[np.argmax(bad)])))
     if n_policy is NPolicy.TO_G:
         codes = codes.copy()
         isn = (seq_bytes == ord("N")) | (seq_bytes == ord("n"))
         codes[isn] = 2  # the src/mySort.c:33 'N'->G quirk
         still = codes == 255
         if still.any():
-            ch = chr(int(seq_bytes[np.argmax(still)]))
-            raise ValueError(f"IUPAC code {ch!r} not covered by to-g policy")
+            raise _bad_char(n_policy, chr(int(seq_bytes[np.argmax(still)])))
         return codes
     # RANDOM: transferN-equivalent seeded substitution
     rng = np.random.default_rng(seed)
@@ -326,6 +452,5 @@ def _encode(seq_bytes: np.ndarray, n_policy: NPolicy, seed: int) -> np.ndarray:
             codes[mask] = _CODE[pool[rng.integers(0, len(bases), size=cnt)]]
     still = codes == 255
     if still.any():
-        ch = chr(int(seq_bytes[np.argmax(still)]))
-        raise ValueError(f"unrecognized sequence character {ch!r}")
+        raise _bad_char(n_policy, chr(int(seq_bytes[np.argmax(still)])))
     return codes

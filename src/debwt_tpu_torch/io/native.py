@@ -1,16 +1,18 @@
 """ctypes bindings for the native host helpers: the LF walker and its
 occ table (csrc/lf_walk.cpp), the out-of-core tier's pass-A binner
-(csrc/ooc_binner.cpp) and the FASTA parser (csrc/fasta_parser.cpp).
+(csrc/ooc_binner.cpp) and the FASTA parser and region scan
+(csrc/fasta_parser.cpp).
 
 The counterpart of the JAX package's io/native.py. Each library is
 built with the host C++ compiler at first use (kernels/_build.py) into
 csrc/build/. A helper that does not build raises: verify.py never turns
 into its Python loop, nor oocore into its NumPy binner, nor read_fasta
-into its NumPy parser, on its own. Those are the versions the tests
-hold the helpers against; they select the walk loop and the NumPy occ
-table by replacing `has_lf_walk` and call the NumPy binner,
-oocore._bin_rows_numpy, and the NumPy parser,
-io.fasta._parse_fasta_numpy, directly.
+or read_collection into its NumPy parser, on its own. Those are the
+versions the tests hold the helpers against; they select the walk loop
+and the NumPy occ table by replacing `has_lf_walk` and call the NumPy
+binner, oocore._bin_rows_numpy, and the NumPy parsers,
+io.fasta._parse_fasta_numpy and io.fasta._read_collection_numpy,
+directly.
 """
 
 from __future__ import annotations
@@ -164,6 +166,14 @@ def _parser():
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_int64),
         ]
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.debwt_scan_fasta_region.restype = ctypes.c_int
+        lib.debwt_scan_fasta_region.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int64, i64p, ctypes.c_void_p,
+            ctypes.c_int64, i64p, ctypes.POINTER(ctypes.c_int), i64p, i64p,
+            ctypes.POINTER(ctypes.c_int),
+        ]
     return lib
 
 
@@ -212,3 +222,74 @@ def parse_fasta(raw: bytes, policy: str, seed: int):
         e = raw.find(b"\n", h)
         names.append(_name(raw[h + 1 : e if e >= 0 else len(raw)], j))
     return reads, names
+
+
+class FastaScan:
+    """io.read_collection's one streaming pass: FASTA regions of whole
+    lines appended, as they are read, to the collection's `x2` (codes,
+    and a T where each record ends) and `sep`, both grown only when full
+    (x2 never is when its first capacity is the file's size + 1). Policy
+    random leaves each IUPAC byte as its upper-case letter in x2 for the
+    caller to replace; an invalid byte raises ValueError with the
+    message io.fasta._encode gives."""
+
+    _POLICY = {"reject": 0, "random": 1, "to-g": 2}
+
+    def __init__(self, policy: str, x2_cap: int):
+        self.policy = policy
+        self.x2 = np.empty(max(x2_cap, 1), dtype=np.uint8)
+        self.sep = np.empty(1024, dtype=np.int64)
+        self._cursor = ctypes.c_int64(0)
+        self._n_sep = ctypes.c_int64(0)
+        self._open = ctypes.c_int(0)
+
+    @property
+    def cursor(self) -> int:
+        """Bytes of x2 written."""
+        return self._cursor.value
+
+    @property
+    def n_sep(self) -> int:
+        return self._n_sep.value
+
+    def scan(self, region: np.ndarray, last: bool = False) -> int:
+        """Appends `region` (C-contiguous uint8, whole lines); with
+        `last`, then closes the last record. Returns the count of IUPAC
+        bytes left marked (policy random)."""
+        from debwt_tpu_torch.io.fasta import NPolicy, _bad_char
+
+        _checked(region, np.uint8, "region")
+        n = region.shape[0]
+        done = 0
+        consumed, marked = ctypes.c_int64(0), ctypes.c_int64(0)
+        err = ctypes.c_int(0)
+        while True:
+            rc = _parser().debwt_scan_fasta_region(
+                region.ctypes.data + done, n - done,
+                self._POLICY[self.policy], int(last),
+                self.x2.ctypes.data, self.x2.shape[0], ctypes.byref(self._cursor),
+                self.sep.ctypes.data, self.sep.shape[0], ctypes.byref(self._n_sep),
+                ctypes.byref(self._open), ctypes.byref(consumed),
+                ctypes.byref(marked), ctypes.byref(err),
+            )
+            if rc == -2:
+                raise _bad_char(NPolicy(self.policy), chr(err.value))
+            if rc != 1:
+                break
+            done += consumed.value
+            if self.n_sep == self.sep.shape[0]:
+                self.sep = _grown(self.sep, 2 * self.n_sep, self.n_sep)
+            need = self.cursor + (n - done) + 1
+            if need > self.x2.shape[0]:
+                self.x2 = _grown(
+                    self.x2, max(need, self.x2.shape[0] * 3 // 2), self.cursor)
+        if rc != 0:
+            raise RuntimeError(f"native FASTA scan failed (rc={rc})")
+        return marked.value
+
+
+def _grown(a: np.ndarray, size: int, keep: int) -> np.ndarray:
+    """A larger array holding a's first `keep` items."""
+    out = np.empty(size, dtype=a.dtype)
+    out[:keep] = a[:keep]
+    return out

@@ -66,6 +66,28 @@ def test_cli_timings_and_unwritable_output(tmp_path, rng, capsys):
                        "cpu", str(path)]) == 1
 
 
+@pytest.mark.parametrize("fmt,counter", [("fasta", "ingest_native_bytes"),
+                                         ("fastq", "ingest_numpy_bytes")])
+def test_cli_timings_count_the_ingest_path(tmp_path, rng, capsys, fmt, counter):
+    """--timings prints the raw bytes of the path that read the input:
+    the native scan for FASTA, the NumPy parser for FASTQ."""
+    reads = _reads(rng, 3)
+    path = tmp_path / f"in.{fmt}"
+    if fmt == "fastq":
+        path.write_text("".join(f"@q{i}\n{r}\n+\n{'I' * len(r)}\n"
+                                for i, r in enumerate(reads)))
+    else:
+        _write_fasta(path, reads)
+    assert torch_main(["-o", str(tmp_path / "o.bwt"), "--device", "cpu",
+                       "--timings", str(path)]) == 0
+    counts = {}
+    for line in capsys.readouterr().err.splitlines():
+        words = line.split()
+        if len(words) == 3 and words[1].startswith("ingest_"):
+            counts[words[1]] = int(words[2])
+    assert counts == {counter: path.stat().st_size}
+
+
 def test_cli_verify_matches_jax_cli(tmp_path, rng, capsys):
     """--verify: the same three files as the JAX CLI's --verify, the
     invertibility line with the port's prefix, exit code 0; bounded by

@@ -1,5 +1,6 @@
 """The port's read_fasta (the native parser and the NumPy one) against
-the JAX package's read_fasta, on the CPU. All data is integer: every
+the JAX package's read_fasta, and its read_collection (the native scan)
+against its own NumPy path, on the CPU. All data is integer: every
 comparison is exact."""
 
 import gzip
@@ -11,8 +12,10 @@ from debwt_tpu.io import native as jax_native
 from debwt_tpu.io import read_fasta as jax_read_fasta
 from debwt_tpu.io.fasta import NPolicy as JaxPolicy
 from debwt_tpu.io.fasta import _parse_fasta_numpy as jax_parse_numpy
-from debwt_tpu_torch.io import native, read_fasta
-from debwt_tpu_torch.io.fasta import NPolicy, _parse_fasta_numpy
+from debwt_tpu_torch.io import native, read_collection, read_fasta
+from debwt_tpu_torch.io.fasta import (
+    NPolicy, _parse_fasta_numpy, _read_collection_numpy,
+)
 from debwt_tpu_torch.kernels import _build
 
 ALPHABET = {"reject": "ACGTacgt", "to-g": "ACGTNn", "random": "ACGTNRYSWKMBDHVn"}
@@ -152,3 +155,138 @@ def test_parser_that_fails_to_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CXX_FLAGS", ("-std=c++17", "--no-such-flag"))
     with pytest.raises(RuntimeError, match="build failed for fasta_parser"):
         read_fasta(str(path))
+
+
+# ---- read_collection: the native scan against the plain NumPy version ----
+
+IUPAC_RUN = {"reject": "", "to-g": "Nn", "random": "NRYSWKMBDHVnrk"}
+
+
+def _collection_text(rng, policy, *, n_records=6, lo=40, hi=400,
+                     width=60, crlf=False, stray_cr=False, lower=False,
+                     blank=False, names="named", run=0, final_newline=True):
+    """FASTA of n_records reads over the policy's alphabet (ACGT, and
+    N/IUPAC where the policy takes them), each longer than 32, in lines
+    of `width`; options for the layouts a reader must take the same
+    way on both paths."""
+    reads = []
+    for _ in range(n_records):
+        r = "".join(rng.choice(list("ACGT"), size=int(rng.integers(lo, hi))))
+        if run and IUPAC_RUN[policy]:
+            at = int(rng.integers(0, len(r)))
+            r = r[:at] + "".join(rng.choice(list(IUPAC_RUN[policy]), size=run)) + r[at:]
+        if stray_cr:
+            at = int(rng.integers(0, len(r)))
+            r = r[:at] + "\r" + r[at:]
+        reads.append(r.lower() if lower and rng.integers(0, 2) else r)
+    heads = {"named": lambda i: f">r{i} a description",
+             "nameless": lambda i: ">" if i % 2 else f">r{i}",
+             "blank": lambda i: "> \t" if i % 2 else f">r{i}"}[names]
+    parts = []
+    for i, r in enumerate(reads):
+        parts.append(heads(i) + "\n" + "".join(
+            r[j : j + width] + "\n" for j in range(0, len(r), width)))
+        if blank:
+            parts.append("\n")
+    text = "".join(parts)
+    if not final_newline:
+        text = text.rstrip("\n")
+    return text.replace("\n", "\r\n") if crlf else text
+
+
+COLLECTION_CASES = {
+    "crlf_lower_blank": dict(crlf=True, stray_cr=True, lower=True, blank=True),
+    "nameless_headers": dict(names="nameless"),
+    "blank_headers": dict(names="blank", blank=True),
+    "many_records_no_final_newline": dict(n_records=300, lo=33, hi=90,
+                                          final_newline=False),
+    "records_and_runs_across_regions": dict(n_records=5, lo=1500, hi=6000,
+                                            width=80, run=700),
+    "gz": dict(n_records=8, lo=300, hi=3000, run=300, crlf=True),
+}
+
+
+def _ingest(read, path, policy, seed, chunk_bytes):
+    """(collection, counters) of one read."""
+    from debwt_tpu_torch import tracing
+
+    with tracing.recording() as rec:
+        coll = read(str(path), policy, seed, chunk_bytes)
+    return coll, rec.counters
+
+
+@pytest.mark.parametrize("chunk_bytes", [1 << 10, 1 << 14])
+@pytest.mark.parametrize("policy,seed", [
+    ("reject", 0), ("to-g", 0), ("random", 3), ("random", 2**31 + 5)])
+@pytest.mark.parametrize("case", sorted(COLLECTION_CASES))
+def test_read_collection_matches_the_numpy_path(tmp_path, case, policy, seed,
+                                                chunk_bytes):
+    """The native scan's x2 and sep are the NumPy path's (_stream_reads,
+    then from_concat) byte for byte, random draws included, when records,
+    lines and IUPAC runs straddle the regions; the counters say which
+    path read the bytes."""
+    rng = np.random.default_rng(sorted(COLLECTION_CASES).index(case))
+    text = _collection_text(rng, policy, **COLLECTION_CASES[case])
+    path = tmp_path / ("in.fa.gz" if case == "gz" else "in.fa")
+    _write(path, text)
+    got, counted = _ingest(read_collection, path, policy, seed, chunk_bytes)
+    want, plain_counted = _ingest(_read_collection_numpy, path, policy, seed,
+                                  chunk_bytes)
+    assert got.x2.dtype == np.uint8 and got.sep.dtype == np.int64
+    np.testing.assert_array_equal(got.x2, want.x2)
+    np.testing.assert_array_equal(got.sep, want.sep)
+    assert got.x2.max() <= 3 and got.sep[-1] == got.x2.shape[0] - 1
+    assert counted == {"ingest_native_bytes": len(text.encode())}
+    assert plain_counted == {"ingest_numpy_bytes": len(text.encode())}
+
+
+ERROR_CASES = [
+    ("reject", b">a\n" + b"A" * 40 + b"N\n"),
+    ("reject", b">a\n" + b"A" * 40 + b"\n>b\nACGT>AC" + b"G" * 40 + b"\n"),
+    ("reject", b">a\n" + b"C" * 40 + b"\r\n>b\n" + b"G" * 40 + b" \n"),
+    ("to-g", b">a\n" + b"ACNn" * 10 + b"R\n"),
+    ("random", b">a\n" + b"ACNR" * 10 + b"X\n"),
+    ("random", b">a\n" + b"ACNR" * 10 + b"\n>b\n" + b"T" * 9 + b">\n"),
+    ("reject", b">a\n" + b"A" * 40 + b"\n>b\n" + b"A" * 32 + b"\n"),
+    ("to-g", b">a\n" + b"A" * 40 + b"\n>b\n"),
+    ("random", b">\n\n>b\n" + b"A" * 40),
+    # a short read early, a bad byte in a later region: the bad byte
+    ("reject", b">a\nAC\n>b\n" + b"A" * 3000 + b"\n>c\n" + b"A" * 40 + b"x\n"),
+    ("reject", b""),
+    ("reject", b"ACGT\n>a\n"),
+    ("random", b"\n>a\nACGT\n"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(ERROR_CASES)))
+def test_read_collection_errors_match_the_numpy_path(tmp_path, case):
+    """Each input either path refuses: the same exception, message and
+    all (a non-ACGT byte, a '>' inside a line, an IUPAC code to-g does
+    not cover, an unrecognized byte under random, a read of 32 bases or
+    fewer, an empty input, neither FASTA nor FASTQ)."""
+    policy, raw = ERROR_CASES[case]
+    path = tmp_path / "bad.fa"
+    path.write_bytes(raw)
+    with pytest.raises(ValueError) as plain:
+        _read_collection_numpy(str(path), NPolicy(policy), 7, 1 << 10)
+    with pytest.raises(ValueError) as native_err:
+        read_collection(str(path), policy, 7, 1 << 10)
+    assert type(native_err.value) is type(plain.value)
+    assert str(native_err.value) == str(plain.value)
+
+
+@pytest.mark.parametrize("suffix", [".fa", ".fa.gz"])
+def test_read_collection_grows_x2_and_sep(tmp_path, suffix):
+    """More records than sep's first 1,024 slots, and in gzip a text
+    far past x2's first guess (four times the compressed size): both
+    grow, and the collection is still the NumPy path's."""
+    text = "".join(f">r{i}\n" + "ACGT" * (10 + i % 7) + "\n" for i in range(3000))
+    path = tmp_path / f"in{suffix}"
+    _write(path, text)
+    if suffix == ".fa.gz":
+        assert 4 * path.stat().st_size < len(text)
+    got = read_collection(str(path), "reject", 0, 1 << 12)
+    want = _read_collection_numpy(str(path), NPolicy.REJECT, 0, 1 << 12)
+    assert got.n_reads == 3000
+    np.testing.assert_array_equal(got.x2, want.x2)
+    np.testing.assert_array_equal(got.sep, want.sep)
