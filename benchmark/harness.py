@@ -214,7 +214,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, dev) -> dict:
         entry.close()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        checks = _check(col, seed, lengths, kept, entry, dev)
+        t0 = time.perf_counter()
+        sorts = []
+        checks = _check(col, seed, lengths, kept, entry, dev, sorts)
+        check_s = time.perf_counter() - t0
     finally:
         if entry is not None:
             entry.close()
@@ -235,13 +238,17 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, dev) -> dict:
                                "idle_gaps": w.trace.idle_gaps()}
     result["checks"] = checks
     result["_notes"] = {"errors": errors[:3], "checked_builds": sorted(kept),
-                        "build_s": build_s, "written_bytes": written_bytes()}
+                        "build_s": build_s, "written_bytes": written_bytes(),
+                        "check_s": check_s,
+                        "sorts": {k: sorts.count(k) for k in set(sorts)}}
     return result
 
 
-def _check(col: dict, seed: int, lengths, kept: dict, entry, dev) -> dict:
+def _check(col: dict, seed: int, lengths, kept: dict, entry, dev,
+           sorts: list) -> dict:
     """The worst of each number compared over the kept answers, each
-    against the plain reference of that build's own input."""
+    against the plain reference of that build's own input; `sorts` gets
+    the path each reference took."""
     worst = {k: 0 for k in LIMITS}
     if not kept:
         return {k: (v, LIMITS[k]) for k, v in worst.items()}
@@ -253,7 +260,9 @@ def _check(col: dict, seed: int, lengths, kept: dict, entry, dev) -> dict:
         codes[q] = (old + shift) % 4
         x = bwt.text6(codes, lengths, dev)
         codes[q] = old
-        got = bwt.compare(ans, bwt.reference_answer(x))
+        stats = {}      # filled by the blocked path only
+        got = bwt.compare(ans, bwt.reference_answer(x, stats=stats))
+        sorts.append("blocked" if stats else "one sort")
         del x
         for k, v in got.items():
             worst[k] = max(worst[k], v)
@@ -279,6 +288,8 @@ def emit(result: dict) -> None:
     print(f"[bench] checked builds {notes.get('checked_builds')}; "
           f"bytes written by this process {notes.get('written_bytes')}",
           file=sys.stderr)
+    print(f"[bench] reference seconds {notes.get('check_s')}, its sorts "
+          f"{notes.get('sorts')}", file=sys.stderr)
     checks = result.pop("checks")
     for k, (v, lim) in checks.items():
         print(f"[bench] check {k} {v} limit {lim}", file=sys.stderr)

@@ -1,5 +1,6 @@
-"""Seconds a job of the CLI's FASTA parse (io.fasta._stream_reads: the
-line table, span mask and CR count of each chunk): the program's spans
+"""Seconds a job of the CLI's parse (for FASTA, io.read_collection's cut
+of each chunk after its last newline; for FASTQ, io.fasta._stream_reads'
+line table, span mask and CR count): the program's spans
 debwt.ingest.parse."""
 
 from benchmark.measure.program import stage_seconds

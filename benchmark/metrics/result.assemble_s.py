@@ -1,6 +1,6 @@
 """Seconds a build of BwtResult.packed()'s host assembly of the `<obj>`
-bytes (the u32 to u64 interleave and tobytes): the program's span
-debwt.pack.assemble."""
+bytes (one tobytes of the fetched words, already in the file's u64
+order): the program's span debwt.pack.assemble."""
 
 from benchmark.measure.program import stage_seconds
 

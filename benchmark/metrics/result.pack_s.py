@@ -1,6 +1,7 @@
 """Seconds a build of BwtResult.packed(), the `<obj>` bytes a library
-user gets (the fused engine's words fetched from the card; the grouped
-tier's host 2-bit pack), timed by the harness's span around it."""
+user gets (on every tier the packed words put in the file's u64 order
+on their device, fetched once and copied out by tobytes), timed by the
+harness's span around it."""
 
 from benchmark.measure.readers import mean_seconds
 

@@ -143,7 +143,8 @@ def test_new_metrics_read_the_program(tiny_root):
     got = run("dmel_140.fused")
     assert {"fused.inputs_s", "fused.wait_s", "fused.syncs",
             "result.fetch_s", "result.assemble_s"} <= set(got)
-    assert got["fused.syncs"]["value"] >= 6
+    # a tiny fused build waits 4 + rank_rounds times, and packed() once
+    assert got["fused.syncs"]["value"] >= 5
     assert "device.idle_traced_pct.build" not in got
     got = run("dmel_140.cli")
     assert {"cli.read_s", "cli.parse_s", "cli.encode_s"} <= set(got)

@@ -2,16 +2,24 @@
 each build gets.
 
 A configuration's `collection` names a base-genome model and its sizes.
-Both models make one base genome and `genomes - 1` copies of it with
-point substitutions (deBWT's target: near-identical genomes), with the
-random draws of the repo's two bench generators in the same order, so
-that seed 0 gives the collections whose hashes and counts
+The first two models make one base genome and `genomes - 1` copies of
+it with point substitutions (deBWT's target: near-identical genomes),
+with the random draws of the repo's two bench generators in the same
+order, so that seed 0 gives the collections whose hashes and counts
 .bench_cache.json records:
 
   "repeats"  bench.synth_reads: pieces of 5,000 to 30,000 random bases,
              and one fragment of `repeat_len` bases (bench.synth_reads:
              a 50th of a genome) reused at `repeat_frac` of the pieces
   "uniform"  tools/bench_ooc.py's synth_concat: uniform random bases
+
+The third is a read set, the classic BWT input (BCR, ropebwt2):
+
+  "reads"    a uniform genome of `genome_mbp` Mbp sequenced to
+             `coverage` in reads of `read_len` bases, each starting at a
+             uniform position, a share `rc_share` of them reverse
+             complements, each base substituted with probability
+             `error_rate`
 
 Every build of a run gets its own input: the collection with one point
 substitution drawn from (seed, build index), so that no build can be
@@ -36,6 +44,9 @@ def make_codes(col: dict, seed: int):
     if model == "uniform":
         return _uniform(col["mbp"], seed, col["genomes"],
                         col["mutation_rate"])
+    if model == "reads":
+        return _reads(col["genome_mbp"], seed, col["read_len"],
+                      col["coverage"], col["error_rate"], col["rc_share"])
     raise ValueError(f"unknown collection model {model!r}")
 
 
@@ -89,6 +100,26 @@ def _uniform(mbp, seed, n_genomes, mutation_rate):
         genomes.append(gen)
     del base
     return np.concatenate(genomes), np.full(n_genomes, per, dtype=np.int64)
+
+
+def _reads(genome_mbp, seed, read_len, coverage, error_rate, rc_share):
+    """The draws, in this order: the genome, each read's start, which
+    reads are reverse complements, the number of substituted bases
+    (binomial: each base independently), their places, their shifts."""
+    rng = np.random.default_rng(seed)
+    size = int(genome_mbp * 1e6)
+    n_reads = int(coverage * size / read_len)
+    genome = rng.integers(0, 4, size=size, dtype=np.uint8)
+    starts = rng.integers(0, size - read_len + 1, size=n_reads)
+    rc = rng.random(n_reads) < rc_share
+    reads = np.lib.stride_tricks.sliding_window_view(genome, read_len)[starts]
+    del genome
+    reads[rc] = 3 - reads[rc, ::-1]
+    codes = reads.reshape(-1)
+    n_err = int(rng.binomial(codes.shape[0], error_rate))
+    idx = rng.choice(codes.shape[0], size=n_err, replace=False)
+    codes[idx] = (codes[idx] + rng.integers(1, 4, size=n_err)) % 4
+    return codes, np.full(n_reads, read_len, dtype=np.int64)
 
 
 def substitution(seed: int, build: int, n_codes: int) -> tuple[int, int]:
